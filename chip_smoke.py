@@ -16,7 +16,15 @@ Phases:
      32768 surfaces of 30 x 50 quotes, held to SciPy on a sub-batch;
   4. the streaming refit: a ``StreamingSession`` over 1024 underlyings
      (30 x 50 chains, 512-minute window, 8192-tick rings), held to the same
-     session on CPU tensors, then one ``run_stream_replay``.
+     session on CPU tensors, then one ``run_stream_replay``;
+  5. the fused task pipeline: 2,048 option symbols x 7 days of hourly rows
+     through ``pipeline.runner.fused_batch`` (interpolate + greeks ->
+     bridge -> quality gate -> 5-min candles) in 8 batches of 256, then one
+     cubic batch; every batch checked for OHLC integrity, the quality
+     gate, candle counts and volume preservation, and launching B2 once
+     (the cubic one B1 too); then B2 at the candle shape against its
+     plain version, and two batches and the cubic one against the same
+     batches on CPU tensors.
 
 Prints a JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -50,6 +58,12 @@ B2_SHAPE = (1024, 4096, 512)
 SURFACE = dict(B=32768, E=30, N=50, M=50)
 STREAM = dict(B=1024, E=30, N=50, W=512, CAP=8192, CHUNKS=8, PER=512)
 REPLAY = dict(n_underlyings=1024, window_minutes=512)
+# the fused pipeline: 2,048 option symbols x 168 hourly observations (7
+# days), about 10 % dropped, packed compact into 8 batches of 256 symbols
+# (the production batch size); the 10,021-minute timeline pads to the
+# 16,384 length bucket; batches 0 and 7 are also run on CPU tensors
+PIPELINE = dict(symbols=2048, hours=168, drop_frac=0.1, batch=256, bucket=16384,
+                cpu_batches=(0, 7))
 
 
 def check(ok, what: str) -> None:
@@ -386,6 +400,363 @@ def streaming_session(svc, agg) -> dict:
     return {"warm_refit_ms": median_ms, "underlyings_per_s": B / (median_ms / 1e3)}
 
 
+# -- phase 5: the fused task pipeline ----------------------------------------
+
+EXPIRIES = (("20mar23", 7), ("27mar23", 14), ("03apr23", 21), ("28apr23", 46),
+            ("26may23", 74), ("30jun23", 109), ("29sep23", 200), ("29dec23", 291))
+STAGES = ("scatter", "interpolate", "bridge", "quality", "candles")
+
+
+def pipeline_config(method: str) -> types.SimpleNamespace:
+    """The JAX package's ``get_config()`` defaults for the fields the fused
+    batch reads (5-minute target, greeks on, spread simulation, quality
+    gate on), with ``method`` as given."""
+    ns = types.SimpleNamespace
+    return ns(
+        processing=ns(dtype="float32"),
+        interpolation=ns(frequency="1min", method=method, max_gap_hours=48,
+                         extrapolate=False, compute_greeks=True),
+        data_bridge=ns(conversion_strategy="spread_simulation",
+                       enable_quality_checks=True, seed=0,
+                       base_spread_percent=0.002, volatility_factor=1.5,
+                       min_spread_percent=0.0005, trend_strength=0.6,
+                       base_volume=50.0, max_spread_percent=0.10),
+        candle_reconstruction=ns(target_frequency="5min", min_candles_required=5))
+
+
+def make_chain(rng, n_symbols: int, hours: int, drop_frac: float):
+    """Hourly ticker rows of an option chain (8 expiries x strikes x call/
+    put), with the columns and distributions of the JAX package's sample
+    generator, in numpy: names, strikes, call/put flags, (S, H, C) values
+    in ``tasks.ALL_COLS`` order, and the (S, H) mask of kept rows (the
+    first and last hour always kept)."""
+    per_exp = n_symbols // len(EXPIRIES)
+    strikes = 20000 + 100 * np.arange(per_exp // 2)
+    syms = [(e, k, cp) for e in range(len(EXPIRIES)) for k in strikes for cp in "cp"]
+    names = [f"btc-{EXPIRIES[e][0]}-{k}-{cp}" for e, k, cp in syms]
+    strike = np.array([k for _, k, _ in syms], np.float64)
+    callput = [cp.upper() for _, _, cp in syms]
+    t0 = np.array([EXPIRIES[e][1] / 365 for e, _, _ in syms])
+    S, H = len(syms), hours
+    base_under = 25000 + rng.normal(0, 500)
+    under = base_under + np.cumsum(rng.normal(0, 50, (S, H)), axis=1)
+    kmon = np.log(strike / base_under)[:, None]
+    iv = np.clip(0.45 + 0.15 * kmon * kmon + 0.05 * np.cumsum(
+        rng.normal(0, 0.02, (S, H)), axis=1) / np.sqrt(np.arange(1, H + 1)), 0.05, 3.0)
+    ttm = np.maximum(t0[:, None] - np.arange(H) / (24 * 365.0), 1e-4)
+    cols = np.stack([iv, under, ttm, np.full((S, H), 0.03), under * 0.02 * iv,
+                     under + rng.normal(0, 5, (S, H)), rng.exponential(10, (S, H)),
+                     rng.exponential(250, (S, H))], axis=-1).astype(np.float32)
+    keep = rng.uniform(size=(S, H)) >= drop_frac
+    keep[:, [0, -1]] = True
+    return names, strike, callput, cols, keep
+
+
+def pack_compact(chain, rows, start_minute: int, bucket: int, columns):
+    """One compact batch with the fields of the JAX package's
+    ``PackedBatch``: only the observations travel, as (N, C) values with
+    row and grid-slot coordinates; N is padded to a power of two >= 1024
+    with rows marked out of range."""
+    names, strike, callput, cols, keep = chain
+    B, H, C = len(rows), cols.shape[1], cols.shape[2]
+    r, h = np.nonzero(keep[rows])                 # row-major: (row, slot) sorted
+    N = 1024
+    while N < len(r):
+        N *= 2
+    obs_vals = np.full((N, C), np.nan, np.float32)
+    obs_vals[:len(r)] = cols[rows][r, h]
+    obs_row = np.full(N, B, np.int32)
+    obs_row[:len(r)] = r
+    obs_pos = np.zeros(N, np.int64)
+    obs_pos[:len(r)] = h * 60
+    return types.SimpleNamespace(
+        bucket_len=bucket, symbols=[names[i] for i in rows], columns=columns,
+        t0_minutes=np.full(B, start_minute, np.int64),
+        valid_len=np.full(B, (H - 1) * 60 + 1, np.int64),
+        n_obs=keep[rows].sum(axis=1), values=None, obs_mask=None, timeline_mask=None,
+        const_cols={"strike": list(strike[rows]), "callput": [callput[i] for i in rows]},
+        obs_vals=obs_vals, obs_row=obs_row, obs_pos=obs_pos)
+
+
+def timed_batch(runner, batch, config):
+    """``fused_batch`` on the card with a CUDA event after each stage:
+    (result, device ms per stage, host seconds of the call including the
+    readback to numpy)."""
+    marks = []
+
+    def mark(name):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((name, ev))
+
+    torch.cuda.synchronize()
+    mark("start")
+    t0 = time.perf_counter()
+    res = runner.fused_batch(batch, config, DEV, on_stage=mark)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ms = {name: marks[i - 1][1].elapsed_time(ev) for i, (name, ev) in enumerate(marks) if i}
+    return res, ms, wall
+
+
+def check_batch(res, segment_ohlcv, what: str) -> dict:
+    """(c): OHLC integrity of the 1-min and 5-min candles, the quality gate,
+    5-min counts against the valid 1-min candles, and volume preservation.
+    Returns the batch's output row counts."""
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    o, c = res["ohlcv"], res["candles"]
+    for stage, d in (("1-min", o), ("5-min", c)):
+        all_ok, _ = segment_ohlcv.validate_ohlcv(*(t(d[f]) for f in (
+            "open", "high", "low", "close", "volume", "valid")))
+        check(bool(all_ok), f"{what}: validate_ohlcv all ok on the {stage} candles")
+    check(not res["failed"] and bool(res["quality_ok"].all()),
+          f"{what}: quality gate passes ({len(res['failed'])} symbols failed)")
+    ns = c["count"].shape[1]
+    seg = res["minutes"] // 5 - res["base_bucket"][:, None]
+    in_range = o["valid"] & (seg >= 0) & (seg < ns)
+    check(int(c["count"].sum()) == int(in_range.sum()),
+          f"{what}: 5-min counts sum to the valid in-range 1-min candles")
+    # volume: every 1-min volume of a valid 5-min bucket, summed in float64,
+    # against the float64 sum of the float32 5-min volumes; each bucket is
+    # a float32 sum of <= 5 non-negative values (<= 4 eps32 relative)
+    in_valid = in_range & np.take_along_axis(c["valid"], np.clip(seg, 0, ns - 1), axis=1)
+    vol_in = float(o["volume"][in_valid].astype(np.float64).sum())
+    candles64 = segment_ohlcv.Candles(**{k: t(v) for k, v in c.items()})
+    candles64 = candles64._replace(volume=candles64.volume.double())
+    stats = segment_ohlcv.reconstruction_stats(int(in_range.sum()), candles64, vol_in)
+    pres = float(stats["volume_preservation"])
+    check(pres <= 4 * EPS32, f"{what}: volume preservation {pres:.3e} <= 4 eps32")
+    return {"interp": int(res["valid"].sum()), "m1": int(o["valid"].sum()),
+            "m5": int(c["valid"].sum()), "preservation": pres}
+
+
+def pipeline_main_path(runner, tasks, segment_ohlcv, agg, tridiag) -> dict:
+    """2,048 symbols through ``fused_batch`` on the card in 8 batches of
+    256, then one cubic batch; (c) and (d) on every batch."""
+    P = PIPELINE
+    rng = np.random.default_rng(15)
+    t0 = time.perf_counter()
+    start = int(np.datetime64("2023-03-20T09:00", "m").astype(np.int64))
+    chain = make_chain(rng, P["symbols"], P["hours"], P["drop_frac"])
+    B = P["batch"]
+    batches = [pack_compact(chain, np.arange(i, i + B), start, P["bucket"], tasks.ALL_COLS)
+               for i in range(0, P["symbols"], B)]
+    # the cubic batch needs one observation count per batch: nothing dropped
+    cubic_chain = make_chain(rng, B, P["hours"], 0.0)
+    cubic_batch = pack_compact(cubic_chain, np.arange(B), start, P["bucket"],
+                               tasks.ALL_COLS)
+    n_in = int(chain[4].sum())
+    log(f"  data: {P['symbols']} symbols x {P['hours']} hours, {n_in:,} input rows "
+        f"after dropping {P['drop_frac']:.0%}; {len(batches)} compact batches of {B} "
+        f"x {P['bucket']} slots; made and packed in {time.perf_counter() - t0:.2f} s (host)")
+
+    config = pipeline_config("linear")
+    torch.cuda.reset_peak_memory_stats()
+    stage_ms, walls, rows, kept = [], [], [], {}
+    for i, batch in enumerate(batches):
+        before = agg.aggregate_ohlcv_cuda.launches
+        res, ms, wall = timed_batch(runner, batch, config)
+        check(agg.aggregate_ohlcv_cuda.launches - before == 1,
+              f"batch {i}: the candle stage launched kernel B2 exactly once")
+        check(res["method"] == "linear" and res["filled"].shape == (B, 8, P["bucket"])
+              and res["candles"]["count"].shape == (B, (P["bucket"] + 4) // 5 + 1),
+              f"batch {i}: output shapes")
+        rows.append(check_batch(res, segment_ohlcv, f"batch {i}"))
+        stage_ms.append(ms)
+        walls.append(wall)
+        if i in P["cpu_batches"]:
+            kept[i] = res
+        log(f"  batch {i}: {wall * 1e3:.1f} ms host; device ms "
+            + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+
+    before = (tridiag.tridiag_solve_cuda.launches, agg.aggregate_ohlcv_cuda.launches)
+    cubic, cubic_ms, cubic_wall = timed_batch(runner, cubic_batch, pipeline_config("cubic"))
+    check(cubic["method"] == "cubic", "the cubic batch ran the cubic method")
+    check(tridiag.tridiag_solve_cuda.launches - before[0] == 1
+          and agg.aggregate_ohlcv_cuda.launches - before[1] == 1,
+          "the cubic batch launched B1 and B2 once each")
+    cubic_rows = check_batch(cubic, segment_ohlcv, "cubic batch")
+    log(f"  cubic batch: {cubic_wall * 1e3:.1f} ms host; device ms "
+        + ", ".join(f"{k} {v:.3f}" for k, v in cubic_ms.items()))
+
+    total = {k: sum(r[k] for r in rows) for k in ("interp", "m1", "m5")}
+    out_rows = sum(total.values())
+    warm = {k: float(np.mean([m[k] for m in stage_ms[1:]])) for k in STAGES}
+    rate = out_rows / sum(walls)
+    log(f"  rows out: {total['interp']:,} interpolated, {total['m1']:,} 1-min candles, "
+        f"{total['m5']:,} 5-min candles ({out_rows:,}) from {n_in:,} input rows")
+    log(f"  end to end ({len(walls)} batches, host clock incl. readback): {sum(walls):.3f} s, "
+        f"{rate:,.0f} output rows/s; warm batch median "
+        f"{sorted(walls[1:])[len(walls[1:]) // 2] * 1e3:.1f} ms")
+    log(f"  warm device ms per batch (mean of batches 1-{len(walls) - 1}): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in warm.items())
+        + f"; sum {sum(warm.values()):.3f}")
+    log(f"  peak device memory {peak_gb:.2f} GiB; max volume preservation "
+        f"{max(r['preservation'] for r in rows + [cubic_rows]):.3e}")
+    return {"batches": batches, "kept": kept, "config": config, "cubic_batch": cubic_batch,
+            "cubic": cubic, "rows_per_s": rate, "warm_stage_ms": warm,
+            "peak_gb": peak_gb}
+
+
+def near_band(o, base, min_spread):
+    """Rows whose high - low sits on the minimum-spread band (the bridge's
+    narrow branch): mid +/- base * min_spread / 2, to rounding."""
+    band = base * min_spread
+    return np.abs((o["high"] - o["low"]) - band) <= 2e-4 + 16 * EPS32 * base
+
+
+def compare_fused(gpu, cpu, config, what, filled_scale=None) -> dict:
+    """(b)/(e): the card's fused batch against the same batch on CPU tensors.
+    Exact: keys, price columns, masks, quality verdicts, candle counts.
+    ``filled`` within 2 ulps of max(1, |x|) (or 64 eps32 of each column's
+    largest |x| for the cubic path, ``filled_scale``), greeks within 64
+    eps32 of each greek's largest |x| (log/exp/ndtr differ in ulps between
+    the devices). OHLC and volume after rounding: within 8 ulps plus one
+    rounding step (max(1e-4 or 1e-6, ulp(x))); a value beyond that must be
+    a minimum-spread flip (``near_band`` in either run), at most 0.1 % of
+    the rows; values that differ at all are counted, at most 1 %."""
+    for k in ("keys", "price_col", "valid", "is_interpolated", "minutes",
+              "base_bucket", "quality_ok"):
+        check(np.array_equal(gpu[k], cpu[k]), f"{what}: {k} equal")
+    check(gpu["failed"] == cpu["failed"], f"{what}: same failed symbols")
+    for stage in ("ohlcv", "candles"):
+        check(np.array_equal(gpu[stage]["valid"], cpu[stage]["valid"]),
+              f"{what}: {stage} valid equal")
+    check(np.array_equal(gpu["candles"]["count"], cpu["candles"]["count"]),
+          f"{what}: candle counts equal")
+    nan_same = lambda a, b: np.array_equal(np.isnan(a), np.isnan(b))
+    a, b = gpu["filled"].astype(np.float64), cpu["filled"].astype(np.float64)
+    check(nan_same(a, b), f"{what}: filled NaN masks equal")
+    d = np.nan_to_num(np.abs(a - b))
+    if filled_scale is None:
+        bound = 2 * EPS32 * np.maximum(1.0, np.abs(np.nan_to_num(b)))
+    else:
+        bound = filled_scale * EPS32 * np.nanmax(np.abs(b), axis=(0, 2), keepdims=True)
+    filled_err = float(d.max())
+    check(bool((d <= bound).all()), f"{what}: filled within its bound (max {filled_err:.3e})")
+    greek_err = 0.0
+    for name, g in cpu["greeks"].items():
+        e = np.nan_to_num(np.abs(gpu["greeks"][name].astype(np.float64) - g))
+        scale = float(np.nanmax(np.abs(g)))
+        check(nan_same(gpu["greeks"][name], g) and e.max() <= 64 * EPS32 * scale,
+              f"{what}: greek {name} within 64 eps32 of {scale:.3e} (max {e.max():.3e})")
+        greek_err = max(greek_err, float(e.max()) / scale)
+    base = np.take_along_axis(cpu["filled"], cpu["price_col"][:, None, None],
+                              axis=1)[:, 0].astype(np.float64)
+    ms = config.data_bridge.min_spread_percent
+    flips, beyond_rows, worst = 0, np.zeros(base.shape, bool), 0.0
+    o_ok = cpu["ohlcv"]["valid"]
+    for f in ("open", "high", "low", "close", "volume"):
+        x, y = gpu["ohlcv"][f].astype(np.float64), cpu["ohlcv"][f].astype(np.float64)
+        ulp = np.spacing(np.abs(y).astype(np.float32)).astype(np.float64)
+        step = np.maximum(1e-6 if f == "volume" else 1e-4, ulp)
+        dd = np.where(o_ok, np.abs(x - y), 0.0)
+        flips += int((dd > 0).sum())
+        beyond_rows |= o_ok & ~(dd <= step + 8 * EPS32 * np.abs(y))
+        worst = max(worst, float(dd.max()))
+    n_beyond = int(beyond_rows.sum())
+    check(flips <= 0.01 * 5 * max(int(o_ok.sum()), 1),
+          f"{what}: at most 1 % of the 1-min OHLCV values differ ({flips})")
+    check(n_beyond <= 1e-3 * max(int(o_ok.sum()), 1)
+          and bool((near_band(gpu["ohlcv"], base, ms) | near_band(cpu["ohlcv"], base, ms))
+                   [beyond_rows].all()),
+          f"{what}: 1-min rows beyond one rounding step are minimum-spread flips "
+          f"({n_beyond})")
+    # 5-min: selections and sums of the 1-min values; buckets holding a row
+    # beyond one step are excused like the row
+    c_ok = cpu["candles"]["valid"]
+    ns = c_ok.shape[1]
+    seg = np.clip(cpu["minutes"] // 5 - cpu["base_bucket"][:, None], 0, ns - 1)
+    excused = np.zeros(c_ok.shape, bool)
+    rb, rl = np.nonzero(beyond_rows)
+    excused[rb, seg[rb, rl]] = True
+    for f in ("open", "high", "low", "close", "volume"):
+        x, y = gpu["candles"][f].astype(np.float64), cpu["candles"][f].astype(np.float64)
+        ulp = np.spacing(np.abs(y).astype(np.float32)).astype(np.float64)
+        if f == "volume":   # a float32 sum of <= 5 rounded 1-min volumes
+            bound = 5 * np.maximum(1e-6, ulp) + 16 * EPS32 * np.abs(y)
+        else:
+            bound = np.maximum(1e-4, ulp) + 8 * EPS32 * np.abs(y)
+        dd = np.where(c_ok & ~excused, np.abs(x - y), 0.0)
+        check(bool(np.where(c_ok & ~excused, dd <= bound, True).all()),
+              f"{what}: 5-min {f} within one rounding step (max {dd.max():.3e})")
+    log(f"  {what}: card vs CPU tensors: filled max {filled_err:.3e}, greeks max "
+        f"{greek_err:.3e} of scale, 1-min OHLCV values that differ {flips} of "
+        f"{5 * int(o_ok.sum()):,} (max {worst:.3e}), beyond one step {n_beyond}")
+    return {"filled": filled_err, "greeks": greek_err, "flips": flips, "beyond": n_beyond}
+
+
+def pipeline_checks(main, runner, tasks, agg, tridiag) -> dict:
+    """(a) B2 at the candle shape, (b) two batches on CPU tensors, (e) the
+    cubic batch on CPU tensors, and B1 at the cubic shape; none counts
+    toward the main path's launches."""
+    config = main["config"]
+    batch = main["batches"][0]
+    dev = runner.dispatch(batch, config, DEV)
+    ohlcv = dev["ohlcv"]
+    ns = dev["candles"]["count"].shape[1]
+    shifted = dev["minutes"] - dev["base_bucket"][:, None] * 5
+    ticks = [shifted, ohlcv["open"], ohlcv["high"], ohlcv["low"], ohlcv["close"],
+             ohlcv["volume"], ohlcv["valid"]]
+    seg_kw = dict(num_segments=ns, min_count=5)
+    kw = dict(bucket_minutes=5, **seg_kw)
+    got = agg.aggregate_ohlcv_cuda(*ticks, **kw)
+    torch.cuda.synchronize()
+    ref = agg.aggregate_ohlcv_plain(*ticks, **kw)
+    b2_err = compare_candles(got, ref, ticks, 5, 0, ns, f"candle stage {tuple(shifted.shape)} -> {ns}")
+    via_tasks = tasks.candles_batch(dev["minutes"], ohlcv, 5, dev["base_bucket"], **seg_kw)
+    for f in ("open", "high", "low", "close", "count", "valid"):
+        check(same_with_nan(getattr(via_tasks, f), getattr(ref, f)),
+              f"candles_batch's per-row base shift: {f} exact")
+    try:
+        agg.aggregate_ohlcv_cuda(ticks[0], *(a.double() for a in ticks[1:6]), ticks[6], **kw)
+        check(False, "a float64 CUDA batch raises")
+    except TypeError:
+        pass
+    # int32 minutes: the wrapper's range check of wider minutes reads the
+    # device, which a CUDA graph capture does not allow
+    ticks32 = [shifted.to(torch.int32)] + ticks[1:]
+    b2_ms = device_ms(lambda: agg.aggregate_ohlcv_cuda(*ticks32, **kw), 20)
+    b2_plain = device_ms(lambda: agg.aggregate_ohlcv_plain(*ticks32, **kw), 5)
+    log(f"  (a) B2 at the candle stage {tuple(shifted.shape)} -> {ns} (4 tiles a row): "
+        f"device ms kernel {b2_ms:.4f}, plain {b2_plain:.4f}; "
+        f"max|volume kernel-plain| {b2_err:.3e}")
+    del dev, got, ref, via_tasks, ticks, ticks32, shifted, ohlcv
+
+    errs = {}
+    for i, gpu in main["kept"].items():
+        t0 = time.perf_counter()
+        cpu = runner.fused_batch(main["batches"][i], config, "cpu")
+        log(f"  (b) batch {i} on CPU tensors in {time.perf_counter() - t0:.1f} s")
+        errs[i] = compare_fused(gpu, cpu, config, f"batch {i}")
+    t0 = time.perf_counter()
+    cubic_cfg = pipeline_config("cubic")
+    cpu = runner.fused_batch(main["cubic_batch"], cubic_cfg, "cpu")
+    log(f"  (e) cubic batch on CPU tensors in {time.perf_counter() - t0:.1f} s")
+    check(cpu["method"] == "cubic", "the CPU cubic batch ran the cubic method")
+    errs["cubic"] = compare_fused(main["cubic"], cpu, cubic_cfg, "cubic batch",
+                                  filled_scale=64)
+
+    # B1 at the cubic batch's shape: 166 unknowns (168 knots, not-a-knot),
+    # 256 x 3 systems
+    gen = torch.Generator(device=DEV).manual_seed(16)
+    u = lambda lo, hi: torch.empty((166, 768), device=DEV).uniform_(lo, hi, generator=gen)
+    d, dl, du = u(4.0, 6.0), u(-1.0, 1.0), u(-1.0, 1.0)
+    rhs = torch.randn((166, 768), device=DEV, generator=gen)
+    x = tridiag.tridiag_solve_cuda(dl, d, du, rhs)
+    torch.cuda.synchronize()
+    ref = tridiag.tridiag_solve_plain(dl, d, du, rhs)
+    b1_err = float((x - ref).abs().max())
+    check(b1_err <= 256 * EPS32 * max(1.0, float(ref.abs().max())),
+          f"B1 at n=166 batch=768 agrees with plain ({b1_err:.3e})")
+    b1_ms = device_ms(lambda: tridiag.tridiag_solve_cuda(dl, d, du, rhs), 20)
+    b1_plain = device_ms(lambda: tridiag.tridiag_solve_plain(dl, d, du, rhs), 5)
+    log(f"  B1 at the cubic shape n=166 batch=768: device ms kernel {b1_ms:.4f}, "
+        f"plain {b1_plain:.4f}; max|kernel-plain| {b1_err:.3e}")
+    return {"b1_err": b1_err, "b2_err": b2_err, "errs": errs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -395,6 +766,8 @@ def main() -> int:
     from iv_interpolation_tpu_torch import _build
     from iv_interpolation_tpu_torch.ops.cuda import stream_agg as agg
     from iv_interpolation_tpu_torch.ops.cuda import tridiag
+    from iv_interpolation_tpu_torch.ops import segment_ohlcv
+    from iv_interpolation_tpu_torch.pipeline import runner, tasks
     from iv_interpolation_tpu_torch.pipeline import stream_service as svc
     from iv_interpolation_tpu_torch.surface import surface
 
@@ -406,7 +779,7 @@ def main() -> int:
         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
 
     log("phase 1: build")
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib_path, nvcc_s = _build.build()
     _build.load_library()
     log(f"  kernels built in {nvcc_s:.2f} s (nvcc), ready in "
@@ -427,9 +800,17 @@ def main() -> int:
     b1 = tridiag_cases(tridiag)
     b2 = stream_agg_cases(agg)
 
-    # the main path: launch counts start here
-    tridiag.tridiag_solve_cuda.launches = 0
-    agg.aggregate_ohlcv_cuda.launches = 0
+    # each main path runs with the launch counts set to 0 just before it
+    # and read just after it
+    def reset_counts():
+        tridiag.tridiag_solve_cuda.launches = 0
+        agg.aggregate_ohlcv_cuda.launches = 0
+
+    def read_counts():
+        return {"b1": tridiag.tridiag_solve_cuda.launches,
+                "b2": agg.aggregate_ohlcv_cuda.launches}
+
+    reset_counts()
     log("phase 3: surface step")
     surf = surface_step(surface, tridiag)
     log("phase 4: streaming refit")
@@ -441,13 +822,26 @@ def main() -> int:
           and replay["butterfly_ok"] == REPLAY["n_underlyings"],
           f"run_stream_replay on the card, all surfaces clean: {replay}")
     log(f"  run_stream_replay: {replay}")
-    launches = {"b1": tridiag.tridiag_solve_cuda.launches,
-                "b2": agg.aggregate_ohlcv_cuda.launches}
-    check(launches["b1"] > 0 and launches["b2"] > 0,
-          f"both kernels ran on the main path: {launches}")
+    surface_stream = read_counts()
+    check(surface_stream["b1"] > 0 and surface_stream["b2"] > 0,
+          f"both kernels ran on the surface and streaming paths: {surface_stream}")
+    log(f"  launches: {surface_stream}; phases 3-4 done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log("phase 5: fused task pipeline")
+    reset_counts()
+    pipe = pipeline_main_path(runner, tasks, segment_ohlcv, agg, tridiag)
+    fused = read_counts()
+    check(fused == {"b1": 1, "b2": len(pipe["batches"]) + 1},
+          f"the pipeline launched B2 once a batch and B1 in the cubic batch: {fused}")
+    log(f"  launches: {fused}")
+    launches = {k: surface_stream[k] + fused[k] for k in fused}
+    checks = pipeline_checks(pipe, runner, tasks, agg, tridiag)
     log(f"  summary: {surf['surfaces_per_s']:,.0f} surfaces/s, warm refit "
         f"{stream['warm_refit_ms']:.3f} ms ({stream['underlyings_per_s']:,.0f} "
-        f"underlyings/s)")
+        f"underlyings/s), pipeline {pipe['rows_per_s']:,.0f} output rows/s; "
+        f"all phases done at {time.perf_counter() - t_start:.1f} s")
+    b1["max_abs_err"] = max(b1["max_abs_err"], checks["b1_err"])
+    b2["max_abs_err"] = max(b2["max_abs_err"], checks["b2_err"])
 
     kernels = [
         {"name": "tridiag_thomas", "route": "cuda",

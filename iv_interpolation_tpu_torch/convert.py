@@ -1,10 +1,10 @@
 """State carry-over from the JAX package to the port.
 
 Each function takes the reference's state with its arrays as numpy
-(``jax.tree.map(np.asarray, state)`` gives that) and returns the port's
+(JAX's ``tree.map(np.asarray, state)`` gives that) and returns the port's
 state on ``device``, dtypes unchanged. This lets a JAX session's
-operators, ring or fitted surfaces be handed to the port, so both compute
-on the same state. Nothing here imports JAX.
+operators, ring, fitted surfaces or PRNG keys be handed to the port, so
+both compute on the same state. Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -38,3 +38,13 @@ def surface_fit_from_numpy(fit, device: torch.device | str = "cpu") -> SurfaceFi
     return SurfaceFit(method=fit.method,
                       **{f: _tensor(getattr(fit, f), device)
                          for f in ("k", "expiries", "w", "coefs")})
+
+
+def prng_key_from_numpy(key_data, device: torch.device | str = "cpu") -> torch.Tensor:
+    """A JAX key's ``random.key_data(key)``, a numpy ``(..., 2)`` uint32 array ->
+    the port's key tensor (``ops.prng``: int64 words, same bits)."""
+    data = np.asarray(key_data)
+    if data.shape[-1:] != (2,) or data.dtype != np.uint32:
+        raise ValueError(f"expected (..., 2) uint32 key data, got "
+                         f"{data.dtype} {data.shape}")
+    return torch.from_numpy(data.astype(np.int64)).to(device)

@@ -18,15 +18,19 @@ from __future__ import annotations
 import torch
 
 from iv_interpolation_tpu_torch._build import check_launch, load_library
-from iv_interpolation_tpu_torch.ops.segment_ohlcv import Candles
+from iv_interpolation_tpu_torch.ops.segment_ohlcv import (
+    Candles,
+    finish_candles,
+    segment_reduce,
+)
 
 _MAX_TILE = 1024  # buckets per block; csrc/stream_agg.cu kMaxTile
+_INT32 = (-2**31, 2**31 - 1)
 
 
-def _prepare(minutes, o, h, l, c, v, valid, bucket_minutes, base_bucket,
-             num_segments):
-    """Cast to the kernel's types (int32 minutes, float32 values, bool
-    valid), make contiguous, and check shapes and devices."""
+def _check(minutes, o, h, l, c, v, valid, bucket_minutes, base_bucket,
+           num_segments) -> None:
+    """Shapes, devices and scalar ranges of a call; casts nothing."""
     arrays = (minutes, o, h, l, c, v, valid)
     if minutes.dim() != 2:
         raise ValueError(f"expected (B, L) inputs, got {tuple(minutes.shape)}")
@@ -37,53 +41,15 @@ def _prepare(minutes, o, h, l, c, v, valid, bucket_minutes, base_bucket,
         raise ValueError(f"inputs on different devices: {[a.device for a in arrays]}")
     if minutes.shape[1] < 1:
         raise ValueError(f"empty tick window: L={minutes.shape[1]}")
+    if minutes.is_floating_point():
+        raise TypeError(f"minutes must be integers, got {minutes.dtype}")
     if bucket_minutes < 1 or num_segments < 1:
         raise ValueError(f"bucket_minutes and num_segments must be positive, "
                          f"got {bucket_minutes}, {num_segments}")
-    if not all(-2**31 <= int(a) < 2**31 for a in (*minutes.shape, bucket_minutes,
-                                                   base_bucket, num_segments)):
+    if not all(_INT32[0] <= int(a) <= _INT32[1] for a in (
+            *minutes.shape, bucket_minutes, base_bucket, num_segments)):
         raise ValueError("shapes, bucket_minutes, base_bucket and num_segments "
                          "must fit in int32")
-    f32 = lambda a: a.to(torch.float32).contiguous()
-    return (minutes.to(torch.int32).contiguous(), f32(o), f32(h), f32(l),
-            f32(c), f32(v), valid.to(torch.bool).contiguous())
-
-
-def _finish(open_, high, low, close, volume, count, min_count: int) -> Candles:
-    empty = count == 0
-    fix = lambda a: a.masked_fill(empty, float("nan"))
-    return Candles(open=fix(open_), high=fix(high), low=fix(low),
-                   close=fix(close), volume=volume.masked_fill(empty, 0.0),
-                   count=count, valid=~empty & (count >= min_count))
-
-
-def _aggregate_raw_plain(minutes, o, h, l, c, v, valid, bucket_minutes,
-                         base_bucket, num_segments):
-    B, L = minutes.shape
-    seg = torch.div(minutes, bucket_minutes, rounding_mode="floor") - base_bucket
-    ok = valid & (seg >= 0) & (seg < num_segments)
-    # dropped rows go to an overflow slot that is sliced off; where()
-    # (never a masked product) keeps their NaN/Inf payloads out
-    idx = torch.where(ok, seg, num_segments).long()
-
-    def reduce(src, how, init):
-        out = torch.full((B, num_segments + 1), init, dtype=src.dtype,
-                         device=src.device)
-        out.scatter_reduce_(1, idx, src, how, include_self=True)
-        return out[:, :num_segments]
-
-    inf = float("inf")
-    pos = torch.arange(L, device=minutes.device).expand(B, L)
-    high = reduce(torch.where(ok, h, -inf), "amax", -inf)
-    low = reduce(torch.where(ok, l, inf), "amin", inf)
-    volume = reduce(torch.where(ok, v, 0.0), "sum", 0.0)
-    count = reduce(ok.to(torch.int32), "sum", 0)
-    first = reduce(torch.where(ok, pos, L), "amin", L)
-    last = reduce(torch.where(ok, pos, -1), "amax", -1)
-    # empty buckets read some row here; _finish replaces them with NaN
-    open_ = torch.gather(o, 1, first.clamp(max=L - 1))
-    close = torch.gather(c, 1, last.clamp(min=0))
-    return open_, high, low, close, volume, count
 
 
 def aggregate_ohlcv_plain(minutes, o, h, l, c, v, valid, *, bucket_minutes: int,
@@ -91,11 +57,21 @@ def aggregate_ohlcv_plain(minutes, o, h, l, c, v, valid, *, bucket_minutes: int,
                           min_count: int) -> Candles:
     """The plain PyTorch version: ``scatter_reduce`` (amax, amin, sum) on
     values selected by ``where``, and amin/amax of row positions for
-    open/close. Runs on any device."""
-    args = _prepare(minutes, o, h, l, c, v, valid, bucket_minutes,
-                    base_bucket, num_segments)
-    raw = _aggregate_raw_plain(*args, bucket_minutes, base_bucket, num_segments)
-    return _finish(*raw, min_count)
+    open/close. Runs on any device, in the values' own dtype."""
+    _check(minutes, o, h, l, c, v, valid, bucket_minutes, base_bucket,
+           num_segments)
+    seg = torch.div(minutes.long(), bucket_minutes, rounding_mode="floor") - base_bucket
+    raw = segment_reduce(seg, o, h, l, c, v, valid.to(torch.bool), num_segments)
+    return finish_candles(*raw, min_count)
+
+
+def _minutes_int32(minutes: torch.Tensor) -> torch.Tensor:
+    """int32 minutes for the kernel; wider integers are range-checked."""
+    if minutes.dtype != torch.int32:
+        lo, hi = (int(x) for x in torch.aminmax(minutes))
+        if lo < _INT32[0] or hi > _INT32[1]:
+            raise ValueError(f"minutes span [{lo}, {hi}], outside int32")
+    return minutes.to(torch.int32).contiguous()
 
 
 def aggregate_ohlcv_cuda(minutes, o, h, l, c, v, valid, *, bucket_minutes: int,
@@ -103,22 +79,31 @@ def aggregate_ohlcv_cuda(minutes, o, h, l, c, v, valid, *, bucket_minutes: int,
                          min_count: int) -> Candles:
     """OHLCV per bucket for every row of a (B, L) tick batch.
 
-    CPU tensors run :func:`aggregate_ohlcv_plain`; CUDA tensors launch the
-    aggregation kernel. ``aggregate_ohlcv_cuda.launches`` counts kernel
-    launches. Volume from the kernel is a float32 sum in an order that
-    varies between runs (shared-memory atomics); every other output is a
-    selection or an integer and is exact.
+    CPU tensors run :func:`aggregate_ohlcv_plain` in their own dtype.
+    CUDA tensors launch the aggregation kernel, which takes float32
+    values only: other value dtypes raise (there is no float64 kernel).
+    ``aggregate_ohlcv_cuda.launches`` counts kernel launches. Volume from
+    the kernel is a float32 sum in an order that varies between runs
+    (shared-memory atomics); every other output is a selection or an
+    integer and is exact.
     """
-    args = _prepare(minutes, o, h, l, c, v, valid, bucket_minutes,
-                    base_bucket, num_segments)
-    device = args[0].device
+    _check(minutes, o, h, l, c, v, valid, bucket_minutes, base_bucket,
+           num_segments)
+    device = minutes.device
     if device.type == "cpu":
-        raw = _aggregate_raw_plain(*args, bucket_minutes, base_bucket,
-                                   num_segments)
-        return _finish(*raw, min_count)
+        return aggregate_ohlcv_plain(
+            minutes, o, h, l, c, v, valid, bucket_minutes=bucket_minutes,
+            base_bucket=base_bucket, num_segments=num_segments,
+            min_count=min_count)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    B, L = args[0].shape
+    values = (o, h, l, c, v)
+    if any(a.dtype != torch.float32 for a in values):
+        raise TypeError("the aggregation kernel takes float32 values on CUDA, "
+                        f"got {[a.dtype for a in values]}")
+    args = (_minutes_int32(minutes), *(a.contiguous() for a in values),
+            valid.to(torch.bool).contiguous())
+    B, L = minutes.shape
     out = [torch.empty((B, num_segments), dtype=torch.float32, device=device)
            for _ in range(5)]
     count = torch.empty((B, num_segments), dtype=torch.int32, device=device)
@@ -132,7 +117,7 @@ def aggregate_ohlcv_cuda(minutes, o, h, l, c, v, valid, *, bucket_minutes: int,
                 base_bucket, min(num_segments, _MAX_TILE), stream)
         check_launch(err, "stream_agg")
         aggregate_ohlcv_cuda.launches += 1
-    return _finish(*out, count, min_count)
+    return finish_candles(*out, count, min_count)
 
 
 aggregate_ohlcv_cuda.launches = 0
