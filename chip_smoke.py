@@ -10,8 +10,16 @@ Phases:
      kernel build from ``iv_interpolation_tpu_torch/csrc`` and the pinned
      float32 matmul precision;
   2. each CUDA kernel against its plain PyTorch version on the card, at
-     the shapes the main path gives it, with the device time of both
-     (wrapper call and plain call, each replayed from a CUDA graph);
+     every shape the main paths give it and at the edges of its launch
+     plan (B1: n=1 and 2, float64, the global-scratch route; B2: int64
+     minutes beyond int32, shuffled rows, NaN/Inf payloads, negative
+     minutes, scalar loads, the tile loop); at each main-path shape the
+     device time of the wrapper and of the plain call (each replayed from
+     a CUDA graph), the bound (bytes or operations this call's inputs need
+     over the card's peak rates), the share of it, and the library call
+     where one computes the same function (B1: ``torch.linalg.solve`` on
+     the dense systems; B2: none); B1 also times its global-scratch
+     kernel (one thread a system) in turns with the planned route;
   3. the surface step: ``fit_eval_surface`` (cubic spline, not-a-knot) on
      32768 surfaces of 30 x 50 quotes, held to SciPy on a sub-batch;
   4. the streaming refit: a ``StreamingSession`` over 1024 underlyings
@@ -22,9 +30,10 @@ Phases:
      bridge -> quality gate -> 5-min candles) in 8 batches of 256, then one
      cubic batch; every batch checked for OHLC integrity, the quality
      gate, candle counts and volume preservation, and launching B2 once
-     (the cubic one B1 too); then B2 at the candle shape against its
-     plain version, and two batches and the cubic one against the same
-     batches on CPU tensors.
+     (the cubic one B1 too); then B2 on a real batch's candle stage
+     against its plain version, the stage timed from a CUDA graph with
+     its int64 minutes, and two batches and the cubic one against the
+     same batches on CPU tensors.
 
 Prints a JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -47,14 +56,25 @@ EPS32 = float(np.finfo(np.float32).eps)
 EPS64 = float(np.finfo(np.float64).eps)
 DEV = "cuda"
 
-# main-path shapes: B1 systems (n, batch, dtype, timed) -- n=48 at 983,040
-# is the not-a-knot reduced system of the surface step (32768 x 30
-# smiles); B2 (B, L, buckets) of the 1-min stage; the surface step; the
-# streaming session; the replay
-B1_CASES = ((48, 983_040, torch.float32, True), (50, 4096, torch.float64, False),
-            (50, 1000, torch.float32, False), (1, 4097, torch.float32, False),
-            (2, 4097, torch.float64, False))
+# phase 2's B1 cases (n, batch, dtype): every main-path shape, then the
+# edges (n=1 and 2, a batch that is no multiple of 4, float64, the
+# global-scratch route of n beyond the staged tiles). n=48 at 983,040 is
+# the not-a-knot reduced system of the surface step (32768 x 30 smiles);
+# n=166 at 768 the pipeline's cubic batch (168 hourly knots, 256 x 3).
+B1_MAIN = {(48, 983_040): "surface step", (166, 768): "cubic batch"}
+B1_CASES = ((48, 983_040, torch.float32, 1.0), (166, 768, torch.float32, 1.0),
+            (50, 4096, torch.float64, 1.0), (50, 1000, torch.float32, 1.0),
+            (1, 4097, torch.float32, 1.0), (2, 4097, torch.float64, 1.0),
+            (257, 4096, torch.float64, 1.0), (500, 2048, torch.float32, 1.0),
+            (24, 4096, torch.float32, 1e38))
+# scale 1e38: diagonals near float32's largest values, whose reciprocals
+# are subnormal and leave the kernel's fast reciprocal (its full-division
+# sweep runs); x stays of order 0.1
+# B2 (B, L, buckets): the streaming refit's 1-min stage and its 5-min stage
+# (1-min candles in, stage 2), and the pipeline's candle stage (256 rows of
+# 16,384 one-minute slots, 10,021 of them filled, to 3,278 5-min buckets)
 B2_SHAPE = (1024, 4096, 512)
+B2_CANDLE = dict(B=256, L=16384, filled=10021, buckets=3278)
 SURFACE = dict(B=32768, E=30, N=50, M=50)
 STREAM = dict(B=1024, E=30, N=50, W=512, CAP=8192, CHUNKS=8, PER=512)
 REPLAY = dict(n_underlyings=1024, window_minutes=512)
@@ -64,6 +84,13 @@ REPLAY = dict(n_underlyings=1024, window_minutes=512)
 # 16,384 length bucket; batches 0 and 7 are also run on CPU tensors
 PIPELINE = dict(symbols=2048, hours=168, drop_frac=0.1, batch=256, bucket=16384,
                 cpu_batches=(0, 7))
+# calls a CUDA graph when a kernel is timed: back to back, as a stream of
+# launches runs them (one a graph adds a graph launch to every call)
+CALLS = 10
+# the card's published peaks (NVIDIA H100 SXM data sheet, at 700 W):
+# device-memory bytes/s and float32 operations/s outside the tensor cores
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
 
 
 def check(ok, what: str) -> None:
@@ -90,11 +117,13 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, reps: int) -> float:
-    """Device time of one ``fn`` call in ms: ``fn`` is captured once in a
-    CUDA graph and replayed ``reps`` times between CUDA events, so the
-    host's launch overhead stays out of the number (eager calls of these
-    wrappers are bound by the host, not the card)."""
+def device_ms(fn, reps: int, calls: int = 1) -> float:
+    """Device time of one ``fn`` call in ms: ``calls`` calls of ``fn`` are
+    captured in one CUDA graph and replayed ``reps`` times between CUDA
+    events, so the host's launch overhead stays out of the number (eager
+    calls of these wrappers are bound by the host, not the card). With
+    ``calls=1`` each call also carries one graph launch; with more, the
+    calls run back to back as a stream of launches does."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -102,7 +131,8 @@ def device_ms(fn, reps: int) -> float:
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        fn()
+        for _ in range(calls):
+            fn()
     graph.replay()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -112,7 +142,7 @@ def device_ms(fn, reps: int) -> float:
         graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (reps * calls)
 
 
 def same_with_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -122,38 +152,126 @@ def same_with_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
     return bool(torch.equal(a, b))
 
 
+def timing_row(shape: str, ms: float, plain_ms: float, nbytes: float, ops: float,
+               library_ms, **extra) -> dict:
+    """One timed shape: the bound is the larger of the bytes over the
+    card's memory rate and the operations over its float32 rate."""
+    byte_ms, op_ms = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    bound = max(byte_ms, op_ms)
+    row = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+           "bound_by": "bytes" if byte_ms >= op_ms else "operations",
+           "share": bound / ms, "library_ms": library_ms, **extra}
+    lib = "none" if library_ms is None else f"{library_ms:.4f}"
+    log(f"  {shape}: device ms kernel {ms:.4f}, plain {plain_ms:.4f}, bound "
+        f"{bound:.4f} ({row['bound_by']}, {nbytes / 1e6:.1f} MB), share {row['share']:.1%}, "
+        f"library {lib}" + "".join(f", {k} {v}" for k, v in extra.items()))
+    return row
+
+
 # -- phase 2: kernels against their plain versions ---------------------------
 
-def tridiag_cases(tridiag) -> dict:
-    """B1 against the plain Thomas loop. Tolerance: 256 ulps of max |x|
-    (diagonally dominant systems, n <= 50: Thomas is backward stable with
-    error growth O(n eps), and the kernel's fused multiply-adds round each
-    step at most one ulp differently from the plain version's separate
-    multiply and subtract)."""
+def dense_solve_ms(dl, d, du, b, x) -> float | None:
+    """``torch.linalg.solve`` on the densified (batch, n, n) systems, 3
+    reps, the matrices built outside the timed window; None where the
+    card's free memory does not hold the matrix, its LU copy and a margin.
+    Its solution is held to the kernel's as a check that it solves the
+    same systems. The port never calls it."""
+    n, batch = d.shape
+    dense_bytes = batch * n * n * d.element_size()
+    if 3 * dense_bytes > torch.cuda.mem_get_info()[0]:
+        log(f"  library (dense solve) at n={n} batch={batch}: not measured, "
+            f"{dense_bytes / 1e9:.1f} GB a copy")
+        return None
+    A = torch.zeros((batch, n, n), dtype=d.dtype, device=d.device)
+    A.diagonal(0, 1, 2).copy_(d.T)
+    A.diagonal(1, 1, 2).copy_(du.T[:, :-1])
+    A.diagonal(-1, 1, 2).copy_(dl.T[:, 1:])
+    rhs = b.T.unsqueeze(-1).contiguous()
+    ms = cuda_ms(lambda: torch.linalg.solve(A, rhs), 3)
+    dense = torch.linalg.solve(A, rhs)[..., 0].T
+    err = float((dense - x).abs().max())
+    check(err <= 1e-3 * max(1.0, float(x.abs().max())),
+          f"the dense solve agrees with the kernel at n={n} ({err:.3e})")
+    del A, rhs, dense
+    torch.cuda.empty_cache()
+    return ms
+
+
+def tridiag_cases(tridiag, lib) -> dict:
+    """B1 against the plain Thomas loop at every case of B1_CASES, then
+    timed at the main-path shapes: the kernel on its planned route, the
+    global-scratch kernel (one thread a system, which the plan keeps for
+    large n) in turns with it, the plain loop, the dense library solve and the
+    bound. Tolerance: 256 ulps of max |x| (diagonally dominant systems:
+    Thomas is backward stable with error growth O(n eps), and the kernel's
+    fused multiply-adds round each step at most one ulp differently from
+    the plain version's separate multiply and subtract)."""
     gen = torch.Generator(device=DEV).manual_seed(11)
-    worst, timing = 0.0, None
-    for n, batch, dtype, timed in B1_CASES:
+    worst, rows = 0.0, []
+    for n, batch, dtype, scale in B1_CASES:
         u = lambda lo, hi: torch.empty((n, batch), dtype=dtype, device=DEV).uniform_(
-            lo, hi, generator=gen)
-        d, dl, du = u(4.0, 6.0), u(-1.0, 1.0), u(-1.0, 1.0)
-        b = torch.randn((n, batch), dtype=dtype, device=DEV, generator=gen)
+            lo * scale, hi * scale, generator=gen)
+        d, dl, du = (u(2.0, 3.0), u(-0.1, 0.1), u(-0.1, 0.1)) if scale > 1 else (
+            u(4.0, 6.0), u(-1.0, 1.0), u(-1.0, 1.0))
+        b = torch.randn((n, batch), dtype=dtype, device=DEV, generator=gen) * max(1.0, scale / 10)
+        plan = tridiag.thomas_plan(n, dtype)
         x = tridiag.tridiag_solve_cuda(dl, d, du, b)
         torch.cuda.synchronize()
         ref = tridiag.tridiag_solve_plain(dl, d, du, b)
         err = float((x - ref).abs().max())
         eps = EPS32 if dtype == torch.float32 else EPS64
         bound = 256 * eps * max(1.0, float(ref.abs().max()))
-        log(f"  B1 n={n} batch={batch} {str(dtype)[6:]}: max|kernel-plain|={err:.3e} "
-            f"(bound {bound:.3e})")
+        log(f"  B1 n={n} batch={batch} {str(dtype)[6:]}{' x%g' % scale if scale > 1 else ''} "
+            f"({plan.route}, {plan.threads} a block, "
+            f"{plan.smem} B shared): max|kernel-plain|={err:.3e} (bound {bound:.3e})")
         check(err <= bound and bool(torch.isfinite(x).all()),
               f"B1 kernel agrees with plain at n={n} batch={batch} {dtype}")
         worst = max(worst, err)
-        if timed:
-            ms = device_ms(lambda: tridiag.tridiag_solve_cuda(dl, d, du, b), 20)
-            plain_ms = device_ms(lambda: tridiag.tridiag_solve_plain(dl, d, du, b), 5)
-            log(f"  B1 n={n} batch={batch}: device ms kernel {ms:.4f}, plain {plain_ms:.4f}")
-            timing = (ms, plain_ms)
-    return {"max_abs_err": worst, "ms": timing[0], "plain_ms": timing[1]}
+        if (n, batch) not in B1_MAIN:
+            continue
+        staged = lambda: tridiag.tridiag_solve_cuda(dl, d, du, b)
+        scratch = scratch_route(lib, dl, d, du, b)
+        turns = [device_ms(f, 20, CALLS) for f in (staged, scratch, scratch, staged)]
+        # the plan's choice of systems a block against the other tiles
+        tiles = {S: round(device_ms(staged_route(lib, dl, d, du, b, S), 20, CALLS), 5)
+                 for S in (32, 64, 128) if 4 * n * S * d.element_size() <= 232448}
+        plain_ms = device_ms(lambda: tridiag.tridiag_solve_plain(dl, d, du, b), 5, CALLS)
+        rows.append(timing_row(
+            f"B1 {B1_MAIN[n, batch]} n={n} batch={batch}", (turns[0] + turns[3]) / 2,
+            plain_ms, 5 * n * batch * d.element_size(), 9 * n * batch,
+            dense_solve_ms(dl, d, du, b, x), scratch_route_ms=(turns[1] + turns[2]) / 2,
+            turns=[round(t, 5) for t in turns], ms_one_call_a_graph=device_ms(staged, 20),
+            systems_a_block=plan.threads,
+            ms_by_systems_a_block=tiles))
+        del scratch
+    return {"max_abs_err": worst, **rows[0], "shapes": rows}
+
+
+def staged_route(lib, dl, d, du, b, S):
+    """A call of the staged float32 Thomas kernel with S systems a block,
+    outside the wrapper, so it counts no launch."""
+    n, batch = d.shape
+    x = torch.empty_like(b)
+
+    def run():
+        err = lib.ivt_thomas_staged_f32(*(a.data_ptr() for a in (dl, d, du, b, x)), n,
+                                        batch, S, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"staged-route launch (S={S}) returned {err}")
+    return run
+
+
+def scratch_route(lib, dl, d, du, b):
+    """A call of the global-scratch Thomas kernel on these systems,
+    outside the wrapper, so it counts no launch."""
+    n, batch = d.shape
+    x, cp = torch.empty_like(b), torch.empty_like(d)
+
+    def run():
+        err = lib.ivt_thomas_scratch_f32(
+            *(a.data_ptr() for a in (dl, d, du, b, x, cp)), n, batch,
+            torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"scratch-route launch returned {err}")
+    return run
 
 
 def bucket_sums(minutes, v, valid, bm, base, ns):
@@ -185,6 +303,56 @@ def compare_candles(got, ref, inputs, bm, base, ns, what) -> float:
     return float(err.max())
 
 
+def b2_bytes(ticks, got) -> int:
+    """Bytes a B2 call must move with these inputs: valid once; the
+    minutes of the valid rows; h, l and v of the rows that land in a
+    bucket (each distinct tensor once); o and c once per nonempty bucket;
+    25 bytes a bucket out (five float32, an int32 count, a bool)."""
+    minutes, o, h, l, c, v, valid = ticks
+    distinct = lambda *ts: len({t.data_ptr() for t in ts})
+    counted = int(got.count.sum())
+    nonempty = int((got.count > 0).sum())
+    return (valid.numel() + int(valid.sum()) * minutes.element_size()
+            + counted * 4 * distinct(h, l, v) + nonempty * 4 * distinct(o, c)
+            + got.count.numel() * 25)
+
+
+def b2_case(agg, ticks, kw, what, timed=False):
+    """One B2 case against its plain version; timed, the kernel and the
+    plain version from CUDA graphs and the bound from these inputs."""
+    got = agg.aggregate_ohlcv_cuda(*ticks, **kw)
+    torch.cuda.synchronize()
+    ref = agg.aggregate_ohlcv_plain(*ticks, **kw)
+    err = compare_candles(got, ref, ticks, kw["bucket_minutes"], kw.get("base_bucket", 0),
+                          kw["num_segments"], what)
+    if not timed:
+        return got, ref, err, None
+    plan = agg.agg_plan(ticks[0].shape[1], kw["num_segments"])
+    kernel = lambda: agg.aggregate_ohlcv_cuda(*ticks, **kw)
+    ms = device_ms(kernel, 20, CALLS)
+    plain = device_ms(lambda: agg.aggregate_ohlcv_plain(*ticks, **kw), 5, CALLS)
+    row = timing_row(f"B2 {what}", ms, plain, b2_bytes(ticks, got), 0, None,
+                     ms_one_call_a_graph=device_ms(kernel, 20),
+                     tiles=plan.tiles, threads=plan.threads, smem=plan.smem,
+                     minutes=str(ticks[0].dtype)[6:])
+    return got, ref, err, row
+
+
+def candle_ticks(gen):
+    """Candle-stage-shaped ticks: each row's 1-min grid from an epoch
+    minute on, the first ``filled`` slots valid (the pipeline's timeline),
+    int64 minutes as the stage passes them."""
+    P = B2_CANDLE
+    B, L = P["B"], P["L"]
+    start = int(np.datetime64("2023-03-20T09:00", "m").astype(np.int64))
+    minutes = (start + torch.arange(L, device=DEV)).expand(B, L).contiguous()
+    mid = 25000 + torch.randn((B, L), generator=gen, device=DEV).cumsum(-1)
+    spread = torch.rand((B, L), generator=gen, device=DEV) * 10
+    valid = (torch.arange(L, device=DEV) < P["filled"]).expand(B, L).contiguous()
+    vol = torch.rand((B, L), generator=gen, device=DEV) * 50
+    return [minutes, mid, mid + spread, mid - spread, mid + 0.5 * spread, vol, valid], start
+
+
 def stream_agg_cases(agg) -> dict:
     gen = torch.Generator(device=DEV).manual_seed(12)
     B, L, ns1 = B2_SHAPE
@@ -195,29 +363,39 @@ def stream_agg_cases(agg) -> dict:
     valid = torch.rand((B, L), generator=gen, device=DEV) < 0.9
     ticks = [minutes, price, price, price, price, size, valid]
     s1 = dict(bucket_minutes=1, num_segments=ns1, min_count=1)
-    worst = 0.0
+    rows = []
 
-    c1 = agg.aggregate_ohlcv_cuda(*ticks, **s1)
-    torch.cuda.synchronize()
-    c1_plain = agg.aggregate_ohlcv_plain(*ticks, **s1)
-    worst = max(worst, compare_candles(c1, c1_plain, ticks, 1, 0, ns1,
-                                       f"{B}x{L} -> {ns1}"))
-    ms1 = device_ms(lambda: agg.aggregate_ohlcv_cuda(*ticks, **s1), 20)
-    plain1 = device_ms(lambda: agg.aggregate_ohlcv_plain(*ticks, **s1), 5)
+    # the pipeline's candle stage: epoch-scale int64 minutes shifted into
+    # range by base_bucket; then the same minutes moved past int32 (the
+    # 64-bit division), with base_bucket moved by as many buckets
+    candles, start = candle_ticks(gen)
+    P = B2_CANDLE
+    sc = dict(bucket_minutes=5, base_bucket=start // 5, num_segments=P["buckets"],
+              min_count=5)
+    got, _, worst, row = b2_case(agg, candles, sc,
+                                 f"candle stage {P['B']}x{P['L']}->{P['buckets']}", True)
+    rows.append(row)
+    check(int(got.count.sum()) == P["B"] * P["filled"], "candle stage: every filled slot counted")
+    shift = -5 * 2**31
+    far = [candles[0] + shift] + candles[1:]
+    far_kw = dict(sc, base_bucket=start // 5 + shift // 5)
+    got_far, _, err, _ = b2_case(agg, far, far_kw, "minutes beyond int32")
+    check(same_with_nan(got_far.count, got.count), "minutes beyond int32: same counts")
+    worst = max(worst, err)
+    del candles, far, got, got_far
 
-    # stage 2 reads the 1-min candles, NaN in their empty buckets
+    # the streaming refit: 1-min stage, then stage 2 on its 1-min candles
+    c1, c1_plain, err, row = b2_case(agg, ticks, s1, f"refit 1-min {B}x{L}->{ns1}", True)
+    rows.append(row)
+    worst = max(worst, err)
     check(bool(torch.isnan(c1_plain.open).any()), "stage-2 input carries NaN")
     m1 = torch.arange(ns1, dtype=torch.int32, device=DEV).expand(B, ns1).contiguous()
     stage2 = [m1, c1_plain.open, c1_plain.high, c1_plain.low, c1_plain.close,
               c1_plain.volume, c1_plain.valid]
     s2 = dict(bucket_minutes=5, num_segments=ns1 // 5 + 1, min_count=5)
-    c5 = agg.aggregate_ohlcv_cuda(*stage2, **s2)
-    torch.cuda.synchronize()
-    worst = max(worst, compare_candles(c5, agg.aggregate_ohlcv_plain(*stage2, **s2),
-                                       stage2, 5, 0, s2["num_segments"],
-                                       f"{B}x{ns1} -> {s2['num_segments']}"))
-    ms2 = device_ms(lambda: agg.aggregate_ohlcv_cuda(*stage2, **s2), 20)
-    plain2 = device_ms(lambda: agg.aggregate_ohlcv_plain(*stage2, **s2), 5)
+    _, _, err, row = b2_case(agg, stage2, s2, f"refit 5-min {B}x{ns1}->{s2['num_segments']}", True)
+    rows.append(row)
+    worst = max(worst, err)
 
     # shuffled rows: high, low, count, valid and volume do not need order
     perm = torch.argsort(torch.rand((B, L), generator=gen, device=DEV), dim=-1)
@@ -243,18 +421,30 @@ def stream_agg_cases(agg) -> dict:
     # negative minutes: floor division drops minutes -4..-1 at base 0
     neg = [ticks[0] - 7] + ticks[1:]
     s_neg = dict(bucket_minutes=5, num_segments=103, min_count=1)
-    cn = agg.aggregate_ohlcv_cuda(*neg, **s_neg)
-    worst = max(worst, compare_candles(cn, agg.aggregate_ohlcv_plain(*neg, **s_neg),
-                                       neg, 5, 0, 103, "negative minutes"))
+    cn, _, err, _ = b2_case(agg, neg, s_neg, "negative minutes")
+    worst = max(worst, err)
     in_first = (valid & (neg[0] >= 0) & (neg[0] < 5)).sum(-1).to(torch.int32)
     check(torch.equal(cn.count[:, 0], in_first), "B2 negative minutes: bucket 0 count")
 
-    log(f"  B2 {B}x{L}->{ns1} (bm=1): device ms kernel {ms1:.4f}, plain {plain1:.4f}")
-    log(f"  B2 {B}x{ns1}->{ns1 // 5 + 1} (bm=5): device ms kernel {ms2:.4f}, "
-        f"plain {plain2:.4f}")
-    log(f"  B2 max|volume kernel-plain| = {worst:.3e}; shuffled, NaN/Inf and "
-        f"negative-minute cases pass")
-    return {"max_abs_err": worst, "ms": ms1 + ms2, "plain_ms": plain1 + plain2}
+    # a row length that is no multiple of 4 (scalar loads), and a bucket
+    # count past one block's shared memory (the tile loop)
+    odd = [a[:, :L - 3].contiguous() for a in ticks]
+    worst = max(worst, b2_case(agg, odd, s1, f"{B}x{L - 3} (scalar loads)")[2])
+    wide_ns, wide_shape = agg.MAX_TILE * 2 + 3616, (64, 16384)
+    wide_min = torch.sort(torch.randint(0, wide_ns, wide_shape, generator=gen, device=DEV,
+                                        dtype=torch.int32), dim=-1).values
+    wide_p = 100 + torch.randn(wide_shape, generator=gen, device=DEV).cumsum(-1) * 0.01
+    wide = [wide_min, wide_p, wide_p, wide_p, wide_p,
+            torch.rand(wide_shape, generator=gen, device=DEV) * 5,
+            torch.rand(wide_shape, generator=gen, device=DEV) < 0.9]
+    plan = agg.agg_plan(wide_shape[1], wide_ns)
+    check(plan.tiles == 3, f"the wide case takes the tile loop: {plan}")
+    worst = max(worst, b2_case(agg, wide, dict(s1, num_segments=wide_ns),
+                               f"tile loop {wide_shape[0]}x{wide_shape[1]}->{wide_ns} "
+                               f"({plan.tiles} tiles)")[2])
+    log(f"  B2 max|volume kernel-plain| = {worst:.3e}; beyond-int32, shuffled, NaN/Inf, "
+        f"negative-minute, scalar-load and tile-loop cases pass")
+    return {"max_abs_err": worst, **rows[0], "shapes": rows}
 
 
 # -- phase 3: the surface step ------------------------------------------------
@@ -687,16 +877,17 @@ def compare_fused(gpu, cpu, config, what, filled_scale=None) -> dict:
     return {"filled": filled_err, "greeks": greek_err, "flips": flips, "beyond": n_beyond}
 
 
-def pipeline_checks(main, runner, tasks, agg, tridiag) -> dict:
-    """(a) B2 at the candle shape, (b) two batches on CPU tensors, (e) the
-    cubic batch on CPU tensors, and B1 at the cubic shape; none counts
-    toward the main path's launches."""
+def pipeline_checks(main, runner, tasks, agg) -> dict:
+    """(a) B2 at the candle stage on a real batch, (b) two batches on CPU
+    tensors, (e) the cubic batch on CPU tensors; none counts toward the
+    main path's launches."""
     config = main["config"]
     batch = main["batches"][0]
     dev = runner.dispatch(batch, config, DEV)
     ohlcv = dev["ohlcv"]
     ns = dev["candles"]["count"].shape[1]
     shifted = dev["minutes"] - dev["base_bucket"][:, None] * 5
+    check(shifted.dtype == torch.int64, "the candle stage's minutes are int64")
     ticks = [shifted, ohlcv["open"], ohlcv["high"], ohlcv["low"], ohlcv["close"],
              ohlcv["volume"], ohlcv["valid"]]
     seg_kw = dict(num_segments=ns, min_count=5)
@@ -705,7 +896,8 @@ def pipeline_checks(main, runner, tasks, agg, tridiag) -> dict:
     torch.cuda.synchronize()
     ref = agg.aggregate_ohlcv_plain(*ticks, **kw)
     b2_err = compare_candles(got, ref, ticks, 5, 0, ns, f"candle stage {tuple(shifted.shape)} -> {ns}")
-    via_tasks = tasks.candles_batch(dev["minutes"], ohlcv, 5, dev["base_bucket"], **seg_kw)
+    stage = lambda: tasks.candles_batch(dev["minutes"], ohlcv, 5, dev["base_bucket"], **seg_kw)
+    via_tasks = stage()
     for f in ("open", "high", "low", "close", "count", "valid"):
         check(same_with_nan(getattr(via_tasks, f), getattr(ref, f)),
               f"candles_batch's per-row base shift: {f} exact")
@@ -714,15 +906,15 @@ def pipeline_checks(main, runner, tasks, agg, tridiag) -> dict:
         check(False, "a float64 CUDA batch raises")
     except TypeError:
         pass
-    # int32 minutes: the wrapper's range check of wider minutes reads the
-    # device, which a CUDA graph capture does not allow
-    ticks32 = [shifted.to(torch.int32)] + ticks[1:]
-    b2_ms = device_ms(lambda: agg.aggregate_ohlcv_cuda(*ticks32, **kw), 20)
-    b2_plain = device_ms(lambda: agg.aggregate_ohlcv_plain(*ticks32, **kw), 5)
-    log(f"  (a) B2 at the candle stage {tuple(shifted.shape)} -> {ns} (4 tiles a row): "
-        f"device ms kernel {b2_ms:.4f}, plain {b2_plain:.4f}; "
+    # the stage as the pipeline calls it (int64 minutes, the per-row
+    # shift, the kernel) captured in a CUDA graph: the wrapper reads
+    # nothing back from the device
+    stage_ms = device_ms(stage, 20, CALLS)
+    kernel_ms = device_ms(lambda: agg.aggregate_ohlcv_cuda(*ticks, **kw), 20, CALLS)
+    log(f"  (a) candle stage {tuple(shifted.shape)} -> {ns}, int64 minutes, from a CUDA "
+        f"graph: candles_batch {stage_ms:.4f} ms, of which B2 {kernel_ms:.4f} ms; "
         f"max|volume kernel-plain| {b2_err:.3e}")
-    del dev, got, ref, via_tasks, ticks, ticks32, shifted, ohlcv
+    del dev, got, ref, via_tasks, ticks, shifted, ohlcv
 
     errs = {}
     for i, gpu in main["kept"].items():
@@ -737,24 +929,7 @@ def pipeline_checks(main, runner, tasks, agg, tridiag) -> dict:
     check(cpu["method"] == "cubic", "the CPU cubic batch ran the cubic method")
     errs["cubic"] = compare_fused(main["cubic"], cpu, cubic_cfg, "cubic batch",
                                   filled_scale=64)
-
-    # B1 at the cubic batch's shape: 166 unknowns (168 knots, not-a-knot),
-    # 256 x 3 systems
-    gen = torch.Generator(device=DEV).manual_seed(16)
-    u = lambda lo, hi: torch.empty((166, 768), device=DEV).uniform_(lo, hi, generator=gen)
-    d, dl, du = u(4.0, 6.0), u(-1.0, 1.0), u(-1.0, 1.0)
-    rhs = torch.randn((166, 768), device=DEV, generator=gen)
-    x = tridiag.tridiag_solve_cuda(dl, d, du, rhs)
-    torch.cuda.synchronize()
-    ref = tridiag.tridiag_solve_plain(dl, d, du, rhs)
-    b1_err = float((x - ref).abs().max())
-    check(b1_err <= 256 * EPS32 * max(1.0, float(ref.abs().max())),
-          f"B1 at n=166 batch=768 agrees with plain ({b1_err:.3e})")
-    b1_ms = device_ms(lambda: tridiag.tridiag_solve_cuda(dl, d, du, rhs), 20)
-    b1_plain = device_ms(lambda: tridiag.tridiag_solve_plain(dl, d, du, rhs), 5)
-    log(f"  B1 at the cubic shape n=166 batch=768: device ms kernel {b1_ms:.4f}, "
-        f"plain {b1_plain:.4f}; max|kernel-plain| {b1_err:.3e}")
-    return {"b1_err": b1_err, "b2_err": b2_err, "errs": errs}
+    return {"b2_err": b2_err, "errs": errs}
 
 
 def main() -> int:
@@ -781,11 +956,13 @@ def main() -> int:
     log("phase 1: build")
     t_start = t0 = time.perf_counter()
     lib_path, nvcc_s = _build.build()
-    _build.load_library()
+    lib = _build.load_library()
     log(f"  kernels built in {nvcc_s:.2f} s (nvcc), ready in "
         f"{time.perf_counter() - t0:.2f} s: {lib_path.name}")
+    # ptxas's report for each kernel: registers, spills (shared memory is
+    # dynamic and sized by the launch plans, printed with phase 2's cases)
     ptxas = [ln for ln in lib_path.with_suffix(".log").read_text().splitlines()
-             if "registers" in ln or "Compiling entry" in ln] if nvcc_s else []
+             if any(k in ln for k in ("Compiling entry", "registers", "spill"))] if nvcc_s else []
     for line in ptxas:
         log("  " + line.strip())
     # full float32 in every product: E2 operator entries (~+-600) under
@@ -797,7 +974,7 @@ def main() -> int:
           "float32 matmul precision pinned to full float32")
 
     log("phase 2: kernels against their plain versions")
-    b1 = tridiag_cases(tridiag)
+    b1 = tridiag_cases(tridiag, lib)
     b2 = stream_agg_cases(agg)
 
     # each main path runs with the launch counts set to 0 just before it
@@ -835,14 +1012,15 @@ def main() -> int:
           f"the pipeline launched B2 once a batch and B1 in the cubic batch: {fused}")
     log(f"  launches: {fused}")
     launches = {k: surface_stream[k] + fused[k] for k in fused}
-    checks = pipeline_checks(pipe, runner, tasks, agg, tridiag)
+    checks = pipeline_checks(pipe, runner, tasks, agg)
     log(f"  summary: {surf['surfaces_per_s']:,.0f} surfaces/s, warm refit "
         f"{stream['warm_refit_ms']:.3f} ms ({stream['underlyings_per_s']:,.0f} "
         f"underlyings/s), pipeline {pipe['rows_per_s']:,.0f} output rows/s; "
         f"all phases done at {time.perf_counter() - t_start:.1f} s")
-    b1["max_abs_err"] = max(b1["max_abs_err"], checks["b1_err"])
     b2["max_abs_err"] = max(b2["max_abs_err"], checks["b2_err"])
 
+    # per kernel: the numbers of its first main-path shape (B1 the surface
+    # step, B2 the candle stage), and every main-path shape under "shapes"
     kernels = [
         {"name": "tridiag_thomas", "route": "cuda",
          "source": "iv_interpolation_tpu_torch/csrc/tridiag_thomas.cu",

@@ -2,7 +2,8 @@
 
 The sources are ``csrc/*.cu`` (and any ``*.cuh``) in this package. On
 first use, :func:`load_library` compiles them with ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface under
+(``sm_90a``), one ``nvcc`` a source, all started together, and links the
+objects into one shared library with a plain C interface under
 ``build/kernels/`` at the repository root. The library's file name holds
 a hash of the sources and the compiler flags, so an edit to either
 forces a rebuild and an unchanged tree reuses the library on disk.
@@ -33,8 +34,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-lineinfo",
     "-Xptxas=-v",  # registers, shared memory and spills land in the log
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
 )
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -46,7 +48,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
     for src in sources():
         digest.update(src.name.encode())
         digest.update(src.read_bytes())
@@ -69,26 +71,42 @@ def _nvcc() -> str:
 def build() -> tuple[Path, float]:
     """Compile the kernels unless the library for these sources exists.
 
-    Returns the library path and the seconds spent compiling (0.0 when
-    the library was already on disk). The compiler's output, including
-    ptxas's register and shared-memory report, is kept beside the library
-    as ``<name>.log``.
+    Each ``.cu`` compiles in its own ``nvcc``, all at once, and one more
+    ``nvcc`` links the objects. Returns the library path and the seconds
+    spent building (0.0 when the library was already on disk). The
+    compilers' output, including ptxas's register, shared-memory and spill
+    report, is kept beside the library as ``<name>.log``.
     """
     lib = library_path()
     if lib.is_file():
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
+    tag = f"{lib.stem}.{os.getpid()}"
+    tmp = lib.with_name(f"{tag}.tmp.so")
+    cu = [p for p in sources() if p.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{p.stem}.o" for p in cu]
+    logs = [o.with_suffix(".log") for o in objs]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *cu],
-                          capture_output=True, text=True)
+    procs = []
+    for src, obj, log in zip(cu, objs, logs):
+        with open(log, "w") as out:
+            procs.append(subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                          stdout=out, stderr=subprocess.STDOUT))
+    codes = [proc.wait() for proc in procs]
+    text = "".join(f"== {src.name}\n{log.read_text()}" for src, log in zip(cu, logs))
+    if all(code == 0 for code in codes):
+        proc = subprocess.run([nvcc, *LINK_FLAGS, "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        codes.append(proc.returncode)
+        text += f"== link\n{proc.stdout}{proc.stderr}"
     seconds = time.perf_counter() - t0
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
+    lib.with_suffix(".log").write_text(text)
+    for path in (*objs, *logs):
+        path.unlink(missing_ok=True)
+    if any(codes):
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        raise RuntimeError(f"nvcc failed (exit codes {codes}):\n{text[-4000:]}")
     os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib, seconds
 
@@ -111,12 +129,22 @@ def pin_precision() -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    for name in ("ivt_thomas_f32", "ivt_thomas_f64"):
+    signatures = {
+        # dl, d, du, b, x, n, batch, systems a block, stream
+        "ivt_thomas_staged_f32": [p] * 5 + [i, ll, i, p],
+        "ivt_thomas_staged_f64": [p] * 5 + [i, ll, i, p],
+        # dl, d, du, b, x, c' scratch, n, batch, stream
+        "ivt_thomas_scratch_f32": [p] * 6 + [i, ll, p],
+        "ivt_thomas_scratch_f64": [p] * 6 + [i, ll, p],
+        # 7 inputs, 7 outputs, B, L, num_segments, bucket_minutes,
+        # base_bucket, min_count, tile, threads, stream
+        "ivt_stream_agg_i32": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
+        "ivt_stream_agg_i64": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
+    }
+    for name, argtypes in signatures.items():
         fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, p, p, p, i, ll, p]
+        fn.argtypes = argtypes
         fn.restype = i
-    lib.ivt_stream_agg.argtypes = [p] * 13 + [i] * 6 + [p]
-    lib.ivt_stream_agg.restype = i
 
 
 def load_library() -> ctypes.CDLL:

@@ -2,7 +2,8 @@
 
 Each function takes the reference's state with its arrays as numpy
 (JAX's ``tree.map(np.asarray, state)`` gives that) and returns the port's
-state on ``device``, dtypes unchanged. This lets a JAX session's
+state on ``device`` (the card unless the caller passes another), dtypes
+unchanged. This lets a JAX session's
 operators, ring, fitted surfaces or PRNG keys be handed to the port, so
 both compute on the same state. Nothing here imports JAX.
 """
@@ -21,26 +22,26 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
 
-def spline_operator_from_numpy(op, device: torch.device | str = "cpu") -> SplineOperator:
+def spline_operator_from_numpy(op, device: torch.device | str = "cuda") -> SplineOperator:
     """``ops.spline_matrix.SplineOperator`` (numpy fields) -> the port's."""
     return SplineOperator(*(_tensor(getattr(op, f), device)
                             for f in SplineOperator._fields))
 
 
-def ring_state_from_numpy(ring, device: torch.device | str = "cpu") -> RingState:
+def ring_state_from_numpy(ring, device: torch.device | str = "cuda") -> RingState:
     """``pipeline.ringbuffer.RingState`` (numpy fields) -> the port's."""
     return RingState(*(_tensor(getattr(ring, f), device)
                        for f in RingState._fields))
 
 
-def surface_fit_from_numpy(fit, device: torch.device | str = "cpu") -> SurfaceFit:
+def surface_fit_from_numpy(fit, device: torch.device | str = "cuda") -> SurfaceFit:
     """``surface.surface.SurfaceFit`` (numpy fields) -> the port's."""
     return SurfaceFit(method=fit.method,
                       **{f: _tensor(getattr(fit, f), device)
                          for f in ("k", "expiries", "w", "coefs")})
 
 
-def prng_key_from_numpy(key_data, device: torch.device | str = "cpu") -> torch.Tensor:
+def prng_key_from_numpy(key_data, device: torch.device | str = "cuda") -> torch.Tensor:
     """A JAX key's ``random.key_data(key)``, a numpy ``(..., 2)`` uint32 array ->
     the port's key tensor (``ops.prng``: int64 words, same bits)."""
     data = np.asarray(key_data)

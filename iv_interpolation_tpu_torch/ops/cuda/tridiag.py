@@ -12,11 +12,48 @@ the CPU. A CUDA tensor launches the kernel, or the call raises.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from iv_interpolation_tpu_torch._build import check_launch, load_library
 
 _DTYPES = (torch.float32, torch.float64)
+_TILES = (128, 64, 32)          # systems a block of the staged route owns
+_SMEM_ONE = 200 * 1024          # one block's tiles, of the 227 KiB a block may hold
+_SMEM_TWO = 113 * 1024          # two such blocks (plus 1 KiB each) fill an SM's 228 KiB
+_SCRATCH_THREADS = 256          # csrc/tridiag_thomas.cu kScratchThreads
+
+
+class ThomasPlan(NamedTuple):
+    """How one (n, batch) solve launches: ``route`` "staged" (tiles in
+    shared memory) or "scratch" (c' in a global scratch array);
+    ``threads`` a block (= systems a block owns); ``smem`` bytes of
+    shared memory a block."""
+    route: str
+    threads: int
+    smem: int
+
+
+def thomas_plan(n: int, dtype: torch.dtype) -> ThomasPlan:
+    """The launch plan for systems of size ``n`` in ``dtype``, by shape.
+
+    The staged route keeps a block's four (n x S) tiles, 4 n S sizeof(T)
+    bytes, in shared memory. S is the largest of 128, 64 and 32 whose tiles
+    let two blocks share an SM, so that one block's copy overlaps the
+    other's sweep; failing that, S=32 with one block an SM while its tiles
+    fit in 200 KiB. Beyond that (n > 400 in float32, n > 200 in float64)
+    the global-scratch route takes the shape.
+    """
+    if n < 1:
+        raise ValueError(f"n must be positive, got {n}")
+    per_system = 4 * n * dtype.itemsize
+    fits = [s for s in _TILES if per_system * s <= _SMEM_ONE]
+    if not fits:
+        return ThomasPlan("scratch", _SCRATCH_THREADS, 0)
+    two = [s for s in fits if per_system * s <= _SMEM_TWO]
+    S = two[0] if two else fits[-1]
+    return ThomasPlan("staged", S, per_system * S)
 
 
 def tridiag_solve_plain(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
@@ -62,8 +99,9 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     """Solve the (n, batch) tridiagonal systems ``A x = b``; returns x.
 
     CPU tensors run :func:`tridiag_solve_plain`; CUDA tensors launch the
-    Thomas kernel (float32 or float64). ``tridiag_solve_cuda.launches``
-    counts kernel launches.
+    Thomas kernel (float32 or float64) on the route :func:`thomas_plan`
+    picks for n. ``tridiag_solve_cuda.launches`` counts kernel launches,
+    one a call.
     """
     _check(dl, d, du, b)
     if d.device.type == "cpu":
@@ -74,14 +112,20 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     x = torch.empty_like(b)
     if batch == 0:
         return x
-    cp = torch.empty_like(d)  # c' scratch; r' is written into x
+    plan = thomas_plan(n, d.dtype)
     lib = load_library()
-    fn = lib.ivt_thomas_f32 if d.dtype == torch.float32 else lib.ivt_thomas_f64
+    suffix = "f32" if d.dtype == torch.float32 else "f64"
+    ptrs = [a.data_ptr() for a in (dl, d, du, b, x)]
     with torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
-        err = fn(dl.data_ptr(), d.data_ptr(), du.data_ptr(), b.data_ptr(),
-                 x.data_ptr(), cp.data_ptr(), n, batch, stream)
-    check_launch(err, "thomas")
+        if plan.route == "staged":
+            err = getattr(lib, f"ivt_thomas_staged_{suffix}")(
+                *ptrs, n, batch, plan.threads, stream)
+        else:
+            cp = torch.empty_like(d)  # c' scratch; r' is written into x
+            err = getattr(lib, f"ivt_thomas_scratch_{suffix}")(
+                *ptrs, cp.data_ptr(), n, batch, stream)
+    check_launch(err, f"thomas ({plan.route})")
     tridiag_solve_cuda.launches += 1
     return x
 

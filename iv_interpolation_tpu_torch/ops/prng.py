@@ -59,9 +59,9 @@ def threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
     return x0, x1
 
 
-def key(seed: int, device: torch.device | str = "cpu") -> torch.Tensor:
+def key(seed: int, device: torch.device | str = "cuda") -> torch.Tensor:
     """The data of JAX's ``random.key(seed)``: a ``(2,)`` key from a 64-bit
-    seed."""
+    seed, on ``device`` (the card unless the caller passes another)."""
     seed = int(seed)
     if not -2**63 <= seed < 2**64:
         raise ValueError(f"seed {seed} does not fit in 64 bits")

@@ -25,7 +25,9 @@ class RingState(NamedTuple):
 
 def make_ring(batch: int, channels: int, length: int,
               dtype: torch.dtype = torch.float32,
-              device: torch.device | str = "cpu") -> RingState:
+              device: torch.device | str = "cuda") -> RingState:
+    """An empty ring on ``device`` (the card unless the caller passes
+    another): NaN data, no valid slot, cursors and counts at 0."""
     return RingState(
         data=torch.full((batch, channels, length), float("nan"), dtype=dtype,
                         device=device),

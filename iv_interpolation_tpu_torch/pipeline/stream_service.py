@@ -45,13 +45,14 @@ class StreamingSession:
       tick_capacity: per-underlying tick-ring slots.
       n_grid: dense eval grid points per expiry.
       spline_bc: boundary condition of the refit operators.
-      device: where the chains, operators and ring live.
+      device: where the chains, operators and ring live: the card unless
+        the caller passes another (``device="cpu"`` for CPU tensors).
     """
 
     def __init__(self, underlyings: List[str], chain_k, chain_iv, chain_T,
                  window_minutes: int = 512, tick_capacity: int = 8192,
                  n_grid: int = 50, spline_bc: str = "not-a-knot",
-                 device: torch.device | str = "cpu"):
+                 device: torch.device | str = "cuda"):
         self.underlyings = list(underlyings)
         self.index: Dict[str, int] = {u: i for i, u in
                                       enumerate(self.underlyings)}
@@ -162,12 +163,11 @@ def run_stream_replay(config, n_underlyings: int = 64,
                       device: torch.device | str | None = None) -> dict:
     """Synthetic streaming replay: GBM ticks ingested chunk by chunk with a
     refit after each (the ``--task stream`` demonstration). ``config`` is
-    an ``iv_interpolation_tpu.config.Config``. Runs on the card when one
-    is present unless ``device`` says otherwise. Returns throughput and
+    an ``iv_interpolation_tpu.config.Config``. Runs on the card
+    (``device=None`` means ``"cuda"``) unless ``device`` names another;
+    CPU callers pass ``device="cpu"``. Returns throughput and
     diagnostics."""
-    if device is None:
-        device = "cuda" if torch.cuda.is_available() else "cpu"
-    device = torch.device(device)
+    device = torch.device("cuda" if device is None else device)
     rng = np.random.default_rng(seed)
     unds = [f"u{i:04d}" for i in range(n_underlyings)]
     E, n = 4, 12

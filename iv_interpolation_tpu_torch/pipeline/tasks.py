@@ -139,9 +139,9 @@ def candles_batch(minutes: torch.Tensor, ohlcv: dict, bucket_minutes: int,
     bridge's dict of (B, L) grids; ``base_bucket`` (B,) the bucket id of
     each row's output slot 0.
 
-    Runs kernel B2's wrapper: a CUDA batch launches the kernel (float32
-    values only: other dtypes raise, and minutes shifted outside int32
-    raise), a CPU batch runs its plain version in the values' dtype. The
+    Runs kernel B2's wrapper: a CUDA batch launches the kernel on the
+    int64 minutes as they are (float32 values only: other dtypes raise),
+    a CPU batch runs its plain version in the values' dtype. The
     kernel takes one base bucket, so each row's minutes are shifted by
     ``base_bucket[b] * bucket_minutes`` and the call uses base 0, which is
     exact: floor((m - b k) / k) = floor(m / k) - b for integers.

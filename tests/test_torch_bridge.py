@@ -55,7 +55,7 @@ def _run(base, volume, valid, minutes, strategy, params, seed=7):
                         jnp.asarray(minutes))
     got = port.synthesize_ohlcv(
         *map(torch.from_numpy, (base, volume, valid)),
-        prng_key_from_numpy(np.asarray(jax.random.key_data(keys))),
+        prng_key_from_numpy(np.asarray(jax.random.key_data(keys)), device="cpu"),
         params=port.BridgeParams(*params), strategy=strategy,
         abs_minutes=torch.from_numpy(minutes))
     return {k: v.numpy() for k, v in got.items()}, jax.tree.map(np.asarray, want)
@@ -110,7 +110,8 @@ def test_custom_params_and_default_minutes_match_jax(rng):
         b, v, ok, k, params=ref.BridgeParams(*params)))(
         *map(jnp.asarray, (base, volume, valid)), keys)
     got = port.synthesize_ohlcv(*map(torch.from_numpy, (base, volume, valid)),
-                                prng_key_from_numpy(np.asarray(jax.random.key_data(keys))),
+                                prng_key_from_numpy(np.asarray(jax.random.key_data(keys)),
+                                                    device="cpu"),
                                 params=port.BridgeParams(*params))
     # (0.5, 2.5) has an inexact affine map: float64 uniform draws may sit
     # one ulp apart (see the prng tests), well inside 1e-12
@@ -139,7 +140,8 @@ def test_deterministic_and_grid_alignment_free(rng):
     base, volume, valid, minutes = _series(rng, 1, 200, np.float64)
     valid[:] = True
     base[:] = np.abs(np.nan_to_num(base, nan=100.0)) + 1.0
-    key = prng_key_from_numpy(np.asarray(jax.random.key_data(jax.random.key(5))))[None]
+    key = prng_key_from_numpy(np.asarray(jax.random.key_data(jax.random.key(5))),
+                              device="cpu")[None]
     run = lambda sl: port.synthesize_ohlcv(
         *(torch.from_numpy(a[:, sl]) for a in (base, volume, valid)), key,
         strategy="price_midpoint", abs_minutes=torch.from_numpy(minutes[:, sl]))

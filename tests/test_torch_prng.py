@@ -30,13 +30,13 @@ def _keys(seed, n):
     data = np.random.default_rng(seed).integers(0, 2**32, n, dtype=np.uint64)
     keys = jax.vmap(jax.random.fold_in, (None, 0))(
         jax.random.key(seed), jnp.asarray(data.astype(np.uint32)))
-    return keys, prng_key_from_numpy(np.asarray(jax.random.key_data(keys)))
+    return keys, prng_key_from_numpy(np.asarray(jax.random.key_data(keys)), device="cpu")
 
 
 @pytest.mark.parametrize("seed", [0, 1, 42, 2**31 + 5, 2**40 + 7])
 def test_key_matches_jax(seed):
     want = np.asarray(jax.random.key_data(jax.random.key(seed)))
-    np.testing.assert_array_equal(prng.key(seed).numpy(), want)
+    np.testing.assert_array_equal(prng.key(seed, device="cpu").numpy(), want)
 
 
 def test_fold_in_matches_jax_bit_for_bit():
@@ -44,12 +44,12 @@ def test_fold_in_matches_jax_bit_for_bit():
     root = jax.random.key(123)
     want = jax.random.key_data(jax.vmap(jax.random.fold_in, (None, 0))(
         root, jnp.asarray(data.astype(np.uint32))))
-    got = prng.fold_in(prng.key(123), torch.from_numpy(data.astype(np.int64)))
+    got = prng.fold_in(prng.key(123, device="cpu"), torch.from_numpy(data.astype(np.int64)))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_fold_in_wraps_data_modulo_2_32():
-    k = prng.key(9)
+    k = prng.key(9, device="cpu")
     np.testing.assert_array_equal(prng.fold_in(k, 2**32 + 17).numpy(),
                                   prng.fold_in(k, 17).numpy())
 
@@ -115,4 +115,4 @@ def test_key_checks():
     with pytest.raises(ValueError):
         prng_key_from_numpy(np.zeros((2,), np.int32))
     with pytest.raises(TypeError):
-        prng.uniform(prng.key(0), torch.float16)
+        prng.uniform(prng.key(0, device="cpu"), torch.float16)

@@ -108,7 +108,8 @@ def test_batched_operators_and_refit_match_jax(rng, queries_per_chain):
         _op_close(getattr(ops, f).numpy(), np.asarray(getattr(ops_ref, f)))
     # the refit on the port's own operators and on the reference's,
     # handed over through convert.py
-    converted = spline_operator_from_numpy(jax.tree.map(np.asarray, ops_ref))
+    converted = spline_operator_from_numpy(jax.tree.map(np.asarray, ops_ref),
+                                           device="cpu")
     want = ref.fit_eval_surface_grid_batched(ops_ref, jnp.asarray(iv),
                                              jnp.asarray(T))
     for o in (ops, converted):

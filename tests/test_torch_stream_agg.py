@@ -16,6 +16,8 @@ import torch
 
 from iv_interpolation_tpu.ops.pallas.stream_agg_pallas import aggregate_ohlcv_pallas
 from iv_interpolation_tpu_torch.ops.cuda.stream_agg import (
+    MAX_TILE,
+    agg_plan,
     aggregate_ohlcv_cuda,
     aggregate_ohlcv_plain,
 )
@@ -166,3 +168,48 @@ def test_wrapper_checks_and_no_launch_on_cpu(rng):
                              min_count=1)
     with pytest.raises(ValueError):
         aggregate_ohlcv_cuda(*(a.to("meta") for a in ticks), **kw)
+
+
+@pytest.mark.parametrize("L,ns,tiles,threads", [
+    (4096, 512, 1, 512),        # streaming 1-min stage
+    (512, 103, 1, 128),         # streaming 5-min stage
+    (16384, 3278, 1, 512),      # candle stage
+    (7, 1, 1, 64),
+    (300, MAX_TILE, 1, 128),    # the largest single pass
+    (300, MAX_TILE + 1, 2, 128),
+    (4096, 20000, 3, 512),
+])
+def test_launch_plan_single_pass_then_tiles(L, ns, tiles, threads):
+    plan = agg_plan(L, ns)
+    assert (plan.tiles, plan.threads) == (tiles, threads)
+    assert plan.tile == min(ns, MAX_TILE) and plan.tiles * plan.tile >= ns
+    assert plan.smem == 24 * plan.tile <= 227 * 1024
+    with pytest.raises(ValueError):
+        agg_plan(L, 0)
+
+
+@pytest.mark.parametrize("shift", [3_000_000_000, -3_000_000_000, 5 * (2**31 - 1)])
+def test_int64_minutes_beyond_int32_match_jax_on_the_same_ids(rng, shift):
+    """int64 minutes outside int32 are accepted wherever their ids land in
+    range: shifted by a multiple of bucket_minutes with base_bucket moved
+    by the same number of buckets, they give the JAX kernel's candles of
+    the unshifted int32 minutes."""
+    bm, ns = 5, 40
+    ticks = _ticks(rng, 3, 300, -12, 210, sort=False)
+    big = [ticks[0].astype(np.int64) + shift] + ticks[1:]
+    assert np.abs(big[0]).min() > 2**31
+    kw = dict(bucket_minutes=bm, num_segments=ns, min_count=2)
+    want = aggregate_ohlcv_pallas(*map(jnp.asarray, ticks), interpret=True, **kw)
+    got = aggregate_ohlcv_plain(*map(torch.from_numpy, big),
+                                base_bucket=shift // bm, **kw)
+    assert got.count.dtype == torch.int32
+    _assert_candles(got, want, ticks, bm, 0, ns)
+
+
+def test_int64_minutes_whose_ids_land_out_of_range_drop(rng):
+    ticks = _ticks(rng, 2, 64, 0, 40)
+    far = [ticks[0].astype(np.int64) + 2**40] + ticks[1:]
+    got = aggregate_ohlcv_plain(*map(torch.from_numpy, far), bucket_minutes=1,
+                                num_segments=40, min_count=1)
+    assert int(got.count.sum()) == 0 and not got.valid.any()
+    assert torch.isnan(got.open).all() and (got.volume == 0).all()

@@ -96,7 +96,7 @@ def test_streaming_step_matches_jax_pallas_path(rng, operators):
             bc_type="not-a-knot")
         kw_ref = dict(kw, spline_ops=ops_ref)
         kw_port = dict(kw, spline_ops=spline_operator_from_numpy(
-            jax.tree.map(np.asarray, ops_ref)))
+            jax.tree.map(np.asarray, ops_ref), device="cpu"))
     else:
         kw_ref = kw_port = dict(kw, spline_bc="not-a-knot")
     want = ref_step(*map(jnp.asarray, ticks + (k, iv, T)),
@@ -108,7 +108,7 @@ def test_streaming_step_matches_jax_pallas_path(rng, operators):
 
 
 def _ring_pair(B, C, L):
-    return port_ring.make_ring(B, C, L), ref_ring.make_ring(B, C, L)
+    return port_ring.make_ring(B, C, L, device="cpu"), ref_ring.make_ring(B, C, L)
 
 
 def _assert_ring(port_state, ref_state):
@@ -134,11 +134,11 @@ def test_ring_push_and_window_match_jax(rng, B, C, L, K, pushes, p_valid):
         ref = ref_ring.push(ref, jnp.asarray(rows), jnp.asarray(valid))
         _assert_ring(port, ref)
     # the reference's ring hands over through convert.py unchanged
-    _assert_ring(ring_state_from_numpy(jax.tree.map(np.asarray, ref)), ref)
+    _assert_ring(ring_state_from_numpy(jax.tree.map(np.asarray, ref), device="cpu"), ref)
 
 
 def test_push_updates_the_ring_in_place(rng):
-    ring = port_ring.make_ring(2, 3, 8)
+    ring = port_ring.make_ring(2, 3, 8, device="cpu")
     ptrs = [t.data_ptr() for t in ring]
     out = port_ring.push(ring, torch.ones(2, 3, 5), torch.ones(2, 5, dtype=torch.bool))
     assert out is ring and [t.data_ptr() for t in ring] == ptrs
@@ -178,7 +178,7 @@ def test_session_ingest_and_refit_match_jax(rng):
     unds = [f"u{i}" for i in range(B)]
     k, iv, T = _chains(B, E, n, rng)
     port = port_svc.StreamingSession(unds, k, iv, T, window_minutes=W,
-                                     tick_capacity=256, n_grid=17)
+                                     tick_capacity=256, n_grid=17, device="cpu")
     ref = ref_svc.StreamingSession(unds, k, iv, T, window_minutes=W,
                                    tick_capacity=256, n_grid=17)
     for f in port.spline_ops._fields:
@@ -192,8 +192,9 @@ def test_session_ingest_and_refit_match_jax(rng):
     assert port.stats() == ref.stats()
     # both compute on one state: the reference's operators and ring,
     # handed over through convert.py
-    port.spline_ops = spline_operator_from_numpy(jax.tree.map(np.asarray, ref.spline_ops))
-    port.ring = ring_state_from_numpy(jax.tree.map(np.asarray, ref.ring))
+    port.spline_ops = spline_operator_from_numpy(jax.tree.map(np.asarray, ref.spline_ops),
+                                                 device="cpu")
+    port.ring = ring_state_from_numpy(jax.tree.map(np.asarray, ref.ring), device="cpu")
     now = ref.latest_minute - 5
     _assert_out(port.refit(now), ref.refit(now), volume_atol=4e-7 * 5 * 180 + 1e-5)
 
@@ -211,7 +212,8 @@ def test_session_epoch_scale_minutes(rng):
     outs = {}
     for label, base in (("small", 0), ("epoch", 29_800_000)):
         sess = port_svc.StreamingSession(unds, k, iv, T, window_minutes=64,
-                                         tick_capacity=512, n_grid=17)
+                                         tick_capacity=512, n_grid=17,
+                                         device="cpu")
         ticks = {"underlying": und_col, "minute": minutes + base,
                  "price": prices, "size": sizes}
         assert sess.ingest_ticks(ticks) == 300
@@ -229,7 +231,7 @@ def test_zero_tick_underlying_keeps_quoted_surface(rng):
     k, iv, T = _chains(B, E, n)
     sess = port_svc.StreamingSession(["live", "quiet"], k, iv, T,
                                      window_minutes=64, tick_capacity=512,
-                                     n_grid=17)
+                                     n_grid=17, device="cpu")
     minutes = np.sort(rng.integers(0, 64, 200))
     sess.ingest_ticks({"underlying": np.array(["live"] * 200), "minute": minutes,
                        "price": 100 + np.cumsum(rng.normal(0, 0.01, 200)),
@@ -250,7 +252,7 @@ def test_replay_runs_on_cpu_without_jax(tmp_path):
         "from iv_interpolation_tpu_torch.pipeline.stream_service import run_stream_replay\n"
         "import iv_interpolation_tpu_torch._build as build\n"
         "r = run_stream_replay(get_config(), n_underlyings=6, window_minutes=40,\n"
-        "                      chunks=4, ticks_per_chunk=60)\n"
+        "                      chunks=4, ticks_per_chunk=60, device='cpu')\n"
         "assert r['device'] == 'cpu' and r['ticks_ingested'] == 6 * 4 * 60, r\n"
         "assert r['butterfly_ok'] == 6 and r['realized_vol_mean'] > 0, r\n"
         "assert build._lib is None, 'a CPU run must not build kernels'\n"

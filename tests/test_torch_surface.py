@@ -105,7 +105,7 @@ def test_eval_surface_matches_jax_on_converted_fit(rng, E):
     fit_ref = ref.fit_surface(*map(jnp.asarray, (k, iv, T)),
                               spline_bc="not-a-knot")
     fit_np = jax.tree.map(np.asarray, fit_ref)
-    fit_port = surface_fit_from_numpy(fit_np)
+    fit_port = surface_fit_from_numpy(fit_np, device="cpu")
     own = port.fit_surface(*map(torch.from_numpy, (k, iv, T)),
                            spline_bc="not-a-knot")
     _close(own.coefs.numpy(), fit_np.coefs, np.float64)

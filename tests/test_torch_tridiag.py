@@ -17,6 +17,7 @@ from iv_interpolation_tpu.ops.pallas.tridiag_pallas import tridiag_solve_pallas
 from iv_interpolation_tpu.ops.tridiag import tridiag_matvec as jax_matvec
 from iv_interpolation_tpu.ops.tridiag import tridiag_solve as jax_solve
 from iv_interpolation_tpu_torch.ops.cuda.tridiag import (
+    thomas_plan,
     tridiag_solve_cuda,
     tridiag_solve_plain,
 )
@@ -100,3 +101,39 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch(rng):
     got = tridiag_solve_cuda(*arrays)
     assert tridiag_solve_cuda.launches == before
     torch.testing.assert_close(got, tridiag_solve_plain(*arrays), rtol=0, atol=0)
+
+
+# The launch plan: (route, systems a block) for n in float32 and float64.
+# The staged route holds 4 n S sizeof(T) bytes a block: S is the largest
+# of 128/64/32 that lets two blocks share an SM (<= 113 KiB each), else 32
+# alone while it fits in 200 KiB, else the global-scratch route.
+PLANS = {
+    (1, torch.float32): ("staged", 128), (1, torch.float64): ("staged", 128),
+    (2, torch.float32): ("staged", 128), (2, torch.float64): ("staged", 128),
+    (48, torch.float32): ("staged", 128), (48, torch.float64): ("staged", 64),
+    (50, torch.float32): ("staged", 128), (50, torch.float64): ("staged", 64),
+    (166, torch.float32): ("staged", 32), (166, torch.float64): ("staged", 32),
+    (257, torch.float32): ("staged", 32), (257, torch.float64): ("scratch", 256),
+    (1000, torch.float32): ("scratch", 256), (1000, torch.float64): ("scratch", 256),
+}
+
+
+@pytest.mark.parametrize("n,dtype", sorted(PLANS, key=str))
+def test_launch_plan_by_shape(n, dtype):
+    plan = thomas_plan(n, dtype)
+    assert (plan.route, plan.threads) == PLANS[n, dtype]
+    size = dtype.itemsize
+    assert plan.smem <= 227 * 1024
+    if plan.route == "staged":
+        assert plan.smem == 4 * n * plan.threads * size
+    # the scratch route exactly where even 32 systems' tiles do not fit
+    assert (plan.route == "scratch") == (4 * n * 32 * size > 200 * 1024)
+
+
+def test_launch_plan_route_boundaries():
+    assert thomas_plan(400, torch.float32).route == "staged"
+    assert thomas_plan(401, torch.float32).route == "scratch"
+    assert thomas_plan(200, torch.float64).route == "staged"
+    assert thomas_plan(201, torch.float64).route == "scratch"
+    with pytest.raises(ValueError):
+        thomas_plan(0, torch.float32)
