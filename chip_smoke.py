@@ -33,7 +33,18 @@ Phases:
      (the cubic one B1 too); then B2 on a real batch's candle stage
      against its plain version, the stage timed from a CUDA graph with
      its int64 minutes, and two batches and the cubic one against the
-     same batches on CPU tensors.
+     same batches on CPU tensors;
+  6. the host runner: the same 2,048 symbols x 7 days (from the port's
+     sample generator) through ``PipelineRunner.run_pipeline_fused`` from
+     a store to the three tables (parquet when pyarrow imports, else
+     memory): output rows/s, host seconds by phase, the device's idle
+     share, peak memory; every symbol completed or skipped, row counts
+     equal to the manifests', the result audits, one B2 launch a batch,
+     the first batch's symbols against a CPU run; the dispatch orders
+     (2 batches in flight against 1) in turns; at 512 symbols x 2 days a
+     stopped-and-resumed run and a staged ``run_all`` against the fused
+     tables and a cubic run (B1 once a sub-batch); the CLI in a
+     subprocess.
 
 Prints a JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -44,10 +55,13 @@ a directory without the package. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
 import types
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -84,6 +98,16 @@ REPLAY = dict(n_underlyings=1024, window_minutes=512)
 # 16,384 length bucket; batches 0 and 7 are also run on CPU tensors
 PIPELINE = dict(symbols=2048, hours=168, drop_frac=0.1, batch=256, bucket=16384,
                 cpu_batches=(0, 7))
+# phase 6, the host runner: the same scale as phase 5 through
+# ``PipelineRunner.run_pipeline_fused`` from a store of sample tickers
+# (the JAX package's generator, about 10 % dropped) to the three tables,
+# production config (float32, linear, 256 a batch, the 16,384 bucket);
+# then (d) at 512 symbols x 2 days, 64 a batch (8 batches). After the
+# main run (2 batches in flight), runs with 1 and 2 batches in flight in
+# turns (1, 2, 2, 1).
+RUNNER = dict(symbols=2048, hours=168, drop_frac=0.1, seed=16, batch=256,
+              small_symbols=512, small_hours=48, small_batch=64)
+RUNNER_ORDER_TURNS = (1, 2, 2, 1)
 # calls a CUDA graph when a kernel is timed: back to back, as a stream of
 # launches runs them (one a graph adds a graph launch to every call)
 CALLS = 10
@@ -91,6 +115,13 @@ CALLS = 10
 # device-memory bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+
+
+def module_version(name: str) -> str:
+    try:
+        return __import__(name).__version__
+    except ImportError:
+        return "missing"
 
 
 def check(ok, what: str) -> None:
@@ -932,6 +963,362 @@ def pipeline_checks(main, runner, tasks, agg) -> dict:
     return {"b2_err": b2_err, "errs": errs}
 
 
+# -- phase 6: the host runner -------------------------------------------------
+
+def make_store(st, root):
+    """A parquet store under ``root`` when pyarrow imports, else a memory
+    store: a choice of store, not of device."""
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        return st.MemoryStore()
+    return st.ParquetStore(str(root))
+
+
+def runner_config(get_config, work, batch: int, method: str = "linear"):
+    """``get_config("production")`` (float32, 5-minute candles, greeks,
+    the quality gate, the 16,384 bucket) with its run files under
+    ``work`` and the given batch size and method."""
+    cfg = get_config("production")
+    cfg.processing.batch_size = batch
+    cfg.interpolation.method = method
+    cfg.checkpoint.manifest_dir = str(work / "runs")
+    cfg.monitoring.snapshot_dir = str(work / "snapshots")
+    return cfg
+
+
+class DispatchProbe:
+    """Wraps ``runner.dispatch`` while installed: CUDA events before and
+    after each batch's stages (device busy time), and the method each
+    batch ran."""
+
+    def __init__(self, runner_mod):
+        self.mod, self.orig = runner_mod, runner_mod.dispatch
+        self.events, self.methods = [], []
+
+    def __enter__(self):
+        def probed(batch, config, device, on_stage=None):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            dev = self.orig(batch, config, device, on_stage)
+            end.record()
+            self.events.append((start, end))
+            self.methods.append(dev["method"])
+            return dev
+        self.mod.dispatch = probed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dispatch = self.orig
+
+    def busy_ms(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events)
+
+
+TABLE_KEYS = {"interpolated_trading_tickers": ["symbol", "date"],
+              "minute_candles": ["symbol", "timestamp"],
+              "reconstructed_candles": ["symbol", "timestamp", "frequency"]}
+
+
+def read_table(store, table, symbols=None):
+    """A table sorted by its upsert keys, symbols as str, without the
+    columns that name a run (batch_id, created_at)."""
+    df = store.read(table, symbols=symbols)
+    df = df.drop(columns=[c for c in ("batch_id", "created_at") if c in df.columns])
+    df["symbol"] = df["symbol"].astype(str)
+    return df.sort_values(TABLE_KEYS[table]).reset_index(drop=True)
+
+
+def tables_equal(a_store, b_store, what: str) -> int:
+    """Every table equal, value for value, except the 5-minute volume: a
+    float32 sum of <= 5 one-minute volumes, within 8 eps32 of it (the
+    kernel's atomics may add a bucket's parts in another order). Returns
+    the number of 5-minute volumes that differ at all."""
+    import pandas as pd
+    differ = 0
+    for table in TABLE_KEYS:
+        a, b = read_table(a_store, table), read_table(b_store, table)
+        if table == "reconstructed_candles":
+            va, vb = a.pop("volume").to_numpy(np.float64), b.pop("volume").to_numpy(np.float64)
+            check(len(va) == len(vb) and bool((np.abs(va - vb) <= 8 * EPS32 * np.abs(vb)).all()),
+                  f"{what}: 5-min volume within 8 eps32")
+            differ = int((va != vb).sum())
+        try:
+            pd.testing.assert_frame_equal(a, b)
+        except AssertionError as e:
+            check(False, f"{what}: {table} equal ({str(e)[:300]})")
+    return differ
+
+
+def compare_tables_cpu(card, cpu, symbols, min_spread) -> dict:
+    """(c): the card's tables for ``symbols`` against the same symbols run
+    on CPU tensors, at phase 5's tolerances: keys, flags and counts exact;
+    interpolated values within 2 ulps of max(1, |x|), greeks within 64
+    eps32 of each greek's largest |x|; 1-minute OHLCV within one rounding
+    step plus 8 ulps, a row beyond that a minimum-spread flip (at most
+    0.1 % of rows), values that differ at all at most 1 %; 5-minute
+    candles within one step unless their bucket holds such a row."""
+    interp = [read_table(s, "interpolated_trading_tickers", symbols) for s in (card, cpu)]
+    a, b = interp
+    same = lambda x, y, cols: all(np.array_equal(x[c].to_numpy(), y[c].to_numpy())
+                                  for c in cols)
+    check(len(a) == len(b) and same(a, b, ("symbol", "date")),
+          "(c) interpolated keys equal")
+    check(same(a, b, ("is_interpolated", "strike", "callput")),
+          "(c) interpolated flags, strikes and call/put equal")
+    worst = {}
+    for c in ("iv", "underlying_price", "time_to_maturity", "interest_rate", "mark_price",
+              "index_price", "volume", "quote_volume"):
+        x, y = a[c].to_numpy(np.float64), b[c].to_numpy(np.float64)
+        check(np.array_equal(np.isnan(x), np.isnan(y)), f"(c) {c} NaN mask")
+        d = np.nan_to_num(np.abs(x - y))
+        check(bool((d <= 2 * EPS32 * np.maximum(1.0, np.abs(np.nan_to_num(y)))).all()),
+              f"(c) {c} within 2 ulps (max {d.max():.3e})")
+        worst[c] = float(d.max())
+    for g in ("delta", "gamma", "theta", "vega", "rho"):
+        x, y = a[g].to_numpy(np.float64), b[g].to_numpy(np.float64)
+        scale = float(np.nanmax(np.abs(y)))
+        d = np.nan_to_num(np.abs(x - y))
+        check(np.array_equal(np.isnan(x), np.isnan(y)) and d.max() <= 64 * EPS32 * scale,
+              f"(c) greek {g} within 64 eps32 of {scale:.3e} (max {d.max():.3e})")
+    m = [read_table(s, "minute_candles", symbols) for s in (card, cpu)]
+    check(len(m[0]) == len(m[1]) and same(m[0], m[1], ("symbol", "timestamp")),
+          "(c) 1-min keys equal")
+    base = m[1].merge(b[["symbol", "date", "underlying_price"]],
+                      left_on=["symbol", "timestamp"], right_on=["symbol", "date"],
+                      how="left")["underlying_price"].to_numpy(np.float64)
+    band = base * min_spread
+    near = lambda f: np.abs((f["high"].to_numpy(np.float64) - f["low"].to_numpy(np.float64))
+                            - band) <= 2e-4 + 16 * EPS32 * base
+    beyond, flips = np.zeros(len(base), bool), 0
+    for f in ("open", "high", "low", "close", "volume"):
+        x, y = m[0][f].to_numpy(np.float64), m[1][f].to_numpy(np.float64)
+        ulp = np.spacing(np.abs(y).astype(np.float32)).astype(np.float64)
+        dd = np.abs(x - y)
+        flips += int((dd > 0).sum())
+        beyond |= ~(dd <= np.maximum(1e-6 if f == "volume" else 1e-4, ulp) + 8 * EPS32 * np.abs(y))
+    n_beyond = int(beyond.sum())
+    check(flips <= 0.01 * 5 * len(base), f"(c) at most 1 % of 1-min values differ ({flips})")
+    check(n_beyond <= 1e-3 * len(base) and bool((near(m[0]) | near(m[1]))[beyond].all()),
+          f"(c) 1-min rows beyond one step are minimum-spread flips ({n_beyond})")
+    r = [read_table(s, "reconstructed_candles", symbols) for s in (card, cpu)]
+    check(len(r[0]) == len(r[1]) and same(r[0], r[1], ("symbol", "timestamp", "source_candles")),
+          "(c) 5-min keys equal")
+    bucket = m[1]["timestamp"].dt.floor("5min")
+    excused = set(zip(m[1]["symbol"][beyond], bucket[beyond]))
+    ok = ~np.fromiter(((s, t) in excused for s, t in zip(r[1]["symbol"], r[1]["timestamp"])),
+                      bool, len(r[1]))
+    for f in ("open", "high", "low", "close", "volume"):
+        x, y = r[0][f].to_numpy(np.float64), r[1][f].to_numpy(np.float64)
+        ulp = np.spacing(np.abs(y).astype(np.float32)).astype(np.float64)
+        bound = (5 * np.maximum(1e-6, ulp) + 16 * EPS32 * np.abs(y) if f == "volume"
+                 else np.maximum(1e-4, ulp) + 8 * EPS32 * np.abs(y))
+        check(bool((np.abs(x - y) <= bound)[ok].all()), f"(c) 5-min {f} within one step")
+    log(f"  (c) {len(symbols)} symbols on CPU tensors: {len(a):,} / {len(base):,} / "
+        f"{len(r[1]):,} rows; filled max err {max(worst.values()):.3e}, 1-min values "
+        f"that differ {flips}, rows beyond one step {n_beyond}")
+    return {"flips": flips, "beyond": n_beyond}
+
+
+def host_runner(reset_counts, read_counts) -> dict:
+    """Phase 6: ``PipelineRunner`` from store to store. (a) 2,048 symbols
+    x 168 hourly rows through ``run_pipeline_fused`` on the card, (b) its
+    rows/s, host split, idle share and peak memory, then the dispatch
+    orders in turns; (c) the manifests, row counts, audits, one B2 launch
+    a batch, and the first batch's symbols on CPU tensors; then (d) and
+    (e). Returns the launches of the runs that count, rows/s, the store
+    and the dispatch orders' wall seconds."""
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import check_results
+    from iv_interpolation_tpu_torch.pipeline import runner as runner_mod
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline.sample_data import generate_sample_tickers
+
+    P = RUNNER
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_runner"
+    t0 = time.perf_counter()
+    tickers = generate_sample_tickers(num_symbols=P["symbols"], hours=P["hours"],
+                                      seed=P["seed"], drop_frac=P["drop_frac"])
+    log(f"  data: {P['symbols']} symbols x {P['hours']} hours, {len(tickers):,} rows, "
+        f"made in {time.perf_counter() - t0:.2f} s (host, set-up)")
+
+    def full_run(name, depth, probe_counts=False):
+        store = make_store(st, work / name / "data")
+        store.write(st.TICKERS, tickers, upsert_keys=["symbol", "date"])
+        cfg = runner_config(get_config, work / name, P["batch"])
+        runner = runner_mod.PipelineRunner(cfg, store)
+        runner.queue_depth = depth
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        if probe_counts:
+            reset_counts()
+        with DispatchProbe(runner_mod) as probe:
+            t = time.perf_counter()
+            res = runner.run_pipeline_fused()
+            wall = time.perf_counter() - t
+        counts = read_counts() if probe_counts else None
+        rows = sum(res[k]["output_rows"] for k in ("task1", "bridge", "task2"))
+        busy = probe.busy_ms() / 1e3
+        return dict(store=store, res=res, wall=wall, rows=rows, rate=rows / wall,
+                    busy=busy, idle=1 - busy / wall, host=dict(runner.host_s),
+                    peak=torch.cuda.max_memory_allocated() / 2**30, counts=counts,
+                    batches=len(probe.events))
+
+    # (a), (b)
+    kind = "parquet" if module_version("pyarrow") != "missing" else "memory"
+    log(f"  store: {kind} (pyarrow {module_version('pyarrow')}) — the choice of store, "
+        f"not of device")
+    main = full_run("main", 2, probe_counts=True)
+    res = main["res"]
+    log(f"  (a) run_pipeline_fused, 2 batches in flight: {main['wall']:.3f} s, "
+        f"{main['rows']:,} output rows, {main['rate']:,.0f} output rows/s; "
+        f"{main['batches']} batches, launches {main['counts']}")
+    log("  (b) host s: " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(main["host"].items()))
+        + f"; device busy {main['busy']:.3f} s, idle share {main['idle']:.1%}, "
+        f"peak device memory {main['peak']:.2f} GiB")
+    # (c)
+    store = main["store"]
+    for k in ("task1", "bridge", "task2"):
+        by = res[k]["by_status"]
+        check(set(by) <= {"completed", "skipped"} and sum(by.values()) == P["symbols"],
+              f"(c) {k}: every symbol completed or skipped, none in error: {by}")
+    for k, table in (("task1", st.INTERPOLATED), ("bridge", st.MINUTE_CANDLES),
+                     ("task2", st.RECONSTRUCTED)):
+        check(store.count(table) == res[k]["output_rows"],
+              f"(c) {table}: {store.count(table)} rows = the manifest's {res[k]['output_rows']}")
+    check(main["counts"] == {"b1": 0, "b2": main["batches"]}
+          and main["batches"] == P["symbols"] // P["batch"],
+          f"(c) B2 once a batch, {main['batches']} batches: {main['counts']}")
+    audit1 = check_results.check_interpolation_results(store)
+    audit2 = check_results.check_candle_results(store)
+    sample = check_results.compare_minute_vs_reconstructed(store, n=12)
+    check(audit1["ok"] and audit1["symbols"] == P["symbols"], "(c) task 1 audit")
+    check(audit2["ok"] and audit2["invalid_ohlc_rows"] == 0
+          and audit2["negative_volume_rows"] == 0, "(c) task 2 audit: OHLC integrity")
+    check(len(sample) == 12 and bool(sample["matches"].all())
+          and bool((sample["src_count"] >= 5).all()),
+          "(c) 5-min candles are their 1-min candles, >= 5 each")
+    log(f"  (c) audits: expansion {audit1['expansion_ratio']:.1f}, compression "
+        f"{audit2['compression_ratio']:.2f}, {audit2['valid_ohlc_rows']:,} valid OHLC rows")
+    first = sorted(tickers["symbol"].unique())[:P["batch"]]
+    cpu_store = st.MemoryStore()
+    cpu_store.write(st.TICKERS, tickers[tickers["symbol"].isin(first)])
+    t = time.perf_counter()
+    cpu_cfg = runner_config(get_config, work / "cpu", P["batch"])
+    runner_mod.PipelineRunner(cpu_cfg, cpu_store, device="cpu").run_pipeline_fused()
+    log(f"  (c) the first batch's {len(first)} symbols on CPU tensors in "
+        f"{time.perf_counter() - t:.1f} s")
+    compare_tables_cpu(store, cpu_store, first, cpu_cfg.data_bridge.min_spread_percent)
+    del cpu_store
+    # the dispatch orders in turns after the main run (2 batches in flight)
+    order = {}
+    for i, depth in enumerate(RUNNER_ORDER_TURNS):
+        run = full_run(f"order{i}", depth)
+        order.setdefault(depth, []).append(run)
+        log(f"  (b) {depth} batch{'es' if depth > 1 else ''} in flight: {run['wall']:.3f} s, "
+            f"{run['rate']:,.0f} output rows/s, idle share {run['idle']:.1%}")
+        shutil.rmtree(work / f"order{i}", ignore_errors=True)
+    shutil.rmtree(work / "main", ignore_errors=True)
+    small = runner_small_scale(work, reset_counts, read_counts)
+    runner_cli(root, work)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": {k: main["counts"][k] + small[k] for k in main["counts"]},
+            "rows_per_s": main["rate"], "store": kind,
+            "order_s": {d: [round(r["wall"], 3) for r in runs] for d, runs in order.items()}}
+
+
+def runner_small_scale(work, reset_counts, read_counts) -> dict:
+    """Phase 6 (d), 512 symbols x 2 days, 64 a batch: a run stopped after
+    two batches and resumed against an uninterrupted one, a staged
+    ``run_all`` against it (B2 once a ``run_task2`` batch), and a cubic run
+    with mixed observation counts (B1 and B2 once a sub-batch). Returns
+    the launches of the staged and cubic runs."""
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import runner as runner_mod
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline.sample_data import generate_sample_tickers
+
+    P = RUNNER
+    small = generate_sample_tickers(num_symbols=P["small_symbols"], hours=P["small_hours"],
+                                    seed=P["seed"] + 1, drop_frac=P["drop_frac"])
+
+    def small_runner(name, method="linear", batch=P["small_batch"]):
+        store = make_store(st, work / name / "data")
+        store.write(st.TICKERS, small, upsert_keys=["symbol", "date"])
+        return runner_mod.PipelineRunner(
+            runner_config(get_config, work / name, batch, method), store)
+
+    whole = small_runner("whole")
+    whole.run_pipeline_fused()
+    stopped = small_runner("stopped")
+    attempts, orig_attempt = [], stopped._attempt
+
+    def stop_after_two(label, fn):
+        attempts.append(label)
+        if len(attempts) == 2:
+            stopped.request_stop()
+        return orig_attempt(label, fn)
+
+    stopped._attempt = stop_after_two
+    s1 = stopped.run_pipeline_fused()
+    pending = s1["task1"]["by_status"].get("pending", 0)
+    check(pending > 0, f"(d) the stopped run left symbols pending: {s1['task1']['by_status']}")
+    resumed = runner_mod.PipelineRunner(stopped.config, stopped.store)
+    s2 = resumed.run_pipeline_fused(resume_batch_id=s1["task1"]["batch_id"])
+    check(s2["task1"]["by_status"] == {"completed": P["small_symbols"]},
+          f"(d) the resumed run completed every symbol: {s2['task1']['by_status']}")
+    resume_differ = tables_equal(resumed.store, whole.store, "(d) stopped + resumed vs whole")
+    staged = small_runner("staged")
+    reset_counts()
+    s3 = staged.run_all()
+    staged_counts = read_counts()
+    n_task2 = sum(1 for rec in staged.metrics.steps if rec["name"].startswith("candles/"))
+    check(staged_counts == {"b1": 0, "b2": n_task2} and n_task2 > 0,
+          f"(d) run_all launched B2 once a run_task2 batch ({n_task2}): {staged_counts}")
+    check(all(s3[k]["by_status"] == {"completed": P["small_symbols"]}
+              for k in ("task1", "bridge", "task2")), "(d) run_all completed every symbol")
+    staged_differ = tables_equal(staged.store, whole.store, "(d) staged vs fused")
+    cubic = small_runner("cubic", "cubic", P["batch"])
+    reset_counts()
+    with DispatchProbe(runner_mod) as probe:
+        s4 = cubic.run_pipeline_fused()
+    cubic_counts = read_counts()
+    n_sub = len(probe.methods)
+    check(set(probe.methods) == {"cubic"} and n_sub > P["small_symbols"] // P["batch"],
+          f"(d) every cubic sub-batch ran the cubic method: {probe.methods}")
+    check(cubic_counts == {"b1": n_sub, "b2": n_sub},
+          f"(d) B1 and B2 once a cubic sub-batch ({n_sub}): {cubic_counts}")
+    check(s4["task2"]["by_status"] == {"completed": P["small_symbols"]},
+          f"(d) the cubic run completed every symbol: {s4['task2']['by_status']}")
+    log(f"  (d) {P['small_symbols']} symbols x {P['small_hours']} h: stopped after "
+        f"{len(attempts)} batches ({pending} pending) and resumed = uninterrupted; staged "
+        f"run_all = fused ({n_task2} task-2 batches); 5-min volumes that differ in the "
+        f"last bit: {resume_differ} and {staged_differ}; cubic: {n_sub} sub-batches, "
+        f"launches {cubic_counts}")
+    return {k: staged_counts[k] + cubic_counts[k] for k in staged_counts}
+
+
+def runner_cli(root, work) -> None:
+    """Phase 6 (e): ``iv-tpu-torch --task pipeline --storage memory --test
+    --json`` in a subprocess on the card exits 0 with the JAX CLI's keys."""
+    cli_dir = work / "cli"
+    cli_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p))
+    cmd = [sys.executable, "-m", "iv_interpolation_tpu_torch.cli", "--task", "pipeline",
+           "--storage", "memory", "--test", "--json"]
+    proc = subprocess.run(cmd, cwd=cli_dir, env=env, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"(e) the CLI exits 0: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    check({"task1", "bridge", "task2", "fused", "wall_s", "status"} <= set(out),
+          f"(e) the CLI's JSON keys: {sorted(out)}")
+    log(f"  (e) {' '.join(cmd[1:])}: exit 0, keys {sorted(out)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -952,6 +1339,7 @@ def main() -> int:
     log(smi.splitlines()[0])
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}, device {torch.cuda.get_device_name(0)}")
+    log(f"pandas {module_version('pandas')}, pyarrow {module_version('pyarrow')}")
 
     log("phase 1: build")
     t_start = t0 = time.perf_counter()
@@ -1011,11 +1399,18 @@ def main() -> int:
     check(fused == {"b1": 1, "b2": len(pipe["batches"]) + 1},
           f"the pipeline launched B2 once a batch and B1 in the cubic batch: {fused}")
     log(f"  launches: {fused}")
-    launches = {k: surface_stream[k] + fused[k] for k in fused}
     checks = pipeline_checks(pipe, runner, tasks, agg)
+    log(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
+    log("phase 6: the host runner")
+    log(f"  card: {smi.splitlines()[0]}")
+    host = host_runner(reset_counts, read_counts)
+    launches = {k: surface_stream[k] + fused[k] + host["launches"][k] for k in fused}
+    log(f"  launches: {host['launches']}; dispatch orders, wall s by batches in flight: "
+        f"{host['order_s']}")
     log(f"  summary: {surf['surfaces_per_s']:,.0f} surfaces/s, warm refit "
         f"{stream['warm_refit_ms']:.3f} ms ({stream['underlyings_per_s']:,.0f} "
-        f"underlyings/s), pipeline {pipe['rows_per_s']:,.0f} output rows/s; "
+        f"underlyings/s), fused_batch {pipe['rows_per_s']:,.0f} output rows/s, "
+        f"runner {host['rows_per_s']:,.0f} output rows/s ({host['store']}); "
         f"all phases done at {time.perf_counter() - t_start:.1f} s")
     b2["max_abs_err"] = max(b2["max_abs_err"], checks["b2_err"])
 

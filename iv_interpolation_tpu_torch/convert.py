@@ -1,18 +1,23 @@
 """State carry-over from the JAX package to the port.
 
-Each function takes the reference's state with its arrays as numpy
-(JAX's ``tree.map(np.asarray, state)`` gives that) and returns the port's
-state on ``device`` (the card unless the caller passes another), dtypes
-unchanged. This lets a JAX session's
-operators, ring, fitted surfaces or PRNG keys be handed to the port, so
-both compute on the same state. Nothing here imports JAX.
+Each ``*_from_numpy`` function takes the reference's state with its
+arrays as numpy (JAX's ``tree.map(np.asarray, state)`` gives that) and
+returns the port's state on ``device`` (the card unless the caller passes
+another), dtypes unchanged. This lets a JAX session's operators, ring,
+fitted surfaces or PRNG keys be handed to the port, so both compute on
+the same state. ``config_from_dict`` takes the JAX package's
+``config_to_dict(cfg)``. Stores and run manifests carry across by their
+shared on-disk formats. Nothing here imports JAX.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from iv_interpolation_tpu_torch.config import Config
 from iv_interpolation_tpu_torch.ops.spline_matrix import SplineOperator
 from iv_interpolation_tpu_torch.pipeline.ringbuffer import RingState
 from iv_interpolation_tpu_torch.surface.surface import SurfaceFit
@@ -49,3 +54,25 @@ def prng_key_from_numpy(key_data, device: torch.device | str = "cuda") -> torch.
         raise ValueError(f"expected (..., 2) uint32 key data, got "
                          f"{data.dtype} {data.shape}")
     return torch.from_numpy(data.astype(np.int64)).to(device)
+
+
+def config_from_dict(d: dict) -> Config:
+    """The JAX package's ``config_to_dict(cfg)`` (plain dicts) -> the
+    port's ``Config``. Every section and field must be one the port's
+    config has; tuples that a JSON round trip turned into lists come
+    back as tuples."""
+    sections = {f.name: f for f in dataclasses.fields(Config)}
+    kw = {}
+    for name, value in d.items():
+        if name not in sections:
+            raise ValueError(f"unknown config section: {name!r}")
+        if isinstance(value, dict):
+            cls = sections[name].default_factory
+            known = {f.name for f in dataclasses.fields(cls)}
+            unknown = set(value) - known
+            if unknown:
+                raise ValueError(f"unknown fields in section {name!r}: {sorted(unknown)}")
+            value = cls(**{k: tuple(v) if isinstance(v, list) else v
+                           for k, v in value.items()})
+        kw[name] = value
+    return Config(**kw)

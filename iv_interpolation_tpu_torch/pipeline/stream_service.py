@@ -162,8 +162,9 @@ def run_stream_replay(config, n_underlyings: int = 64,
                       ticks_per_chunk: int = 200, seed: int = 0,
                       device: torch.device | str | None = None) -> dict:
     """Synthetic streaming replay: GBM ticks ingested chunk by chunk with a
-    refit after each (the ``--task stream`` demonstration). ``config`` is
-    an ``iv_interpolation_tpu.config.Config``. Runs on the card
+    refit after each (``iv-tpu-torch --task stream``). ``config`` is the
+    port's ``iv_interpolation_tpu_torch.config.Config`` (its
+    ``surface.grid_strikes`` is read). Runs on the card
     (``device=None`` means ``"cuda"``) unless ``device`` names another;
     CPU callers pass ``device="cpu"``. Returns throughput and
     diagnostics."""

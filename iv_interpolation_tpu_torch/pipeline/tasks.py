@@ -15,13 +15,9 @@ from iv_interpolation_tpu_torch.ops.bridge import BridgeParams, synthesize_ohlcv
 from iv_interpolation_tpu_torch.ops.cuda.stream_agg import aggregate_ohlcv_cuda
 from iv_interpolation_tpu_torch.ops.interp import cubic_resample, masked_interp
 from iv_interpolation_tpu_torch.ops.segment_ohlcv import Candles
-
 # the packed grid's columns: the first three interpolated, the rest
-# forward-filled (the JAX package's ``pipeline.ingest.ALL_COLS``)
-INTERP_COLS = ("iv", "underlying_price", "time_to_maturity")
-FFILL_COLS = ("interest_rate", "mark_price", "index_price", "volume",
-              "quote_volume")
-ALL_COLS = INTERP_COLS + FFILL_COLS
+# forward-filled
+from iv_interpolation_tpu_torch.pipeline.ingest import ALL_COLS, INTERP_COLS
 
 _N_INTERP = len(INTERP_COLS)
 _IV, _UP, _TTM = 0, 1, 2

@@ -96,3 +96,28 @@ def test_cpu_callers_pass_device_cpu():
     out = stream_service.run_stream_replay(config, n_underlyings=2, window_minutes=16,
                                            chunks=2, ticks_per_chunk=8, device="cpu")
     assert out["device"] == "cpu" and out["ticks_ingested"] == 2 * 2 * 8
+
+
+def test_runner_and_cli_default_to_the_card(monkeypatch, tmp_path):
+    """``PipelineRunner`` and ``iv-tpu-torch`` target ``"cuda"`` unless
+    told ``device="cpu"`` / ``--device cpu``; without a card they raise
+    before reading the store."""
+    from iv_interpolation_tpu_torch import cli
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline.runner import PipelineRunner
+    from iv_interpolation_tpu_torch.pipeline.storage import MemoryStore
+
+    monkeypatch.chdir(tmp_path)
+    assert inspect.signature(PipelineRunner).parameters["device"].default == "cuda"
+    assert cli.build_parser().get_default("device") == "cuda"
+    argv = ["--task", "pipeline", "--storage", "memory", "--test", "--json"]
+    if torch.cuda.is_available():
+        assert PipelineRunner(get_config("testing"), MemoryStore()).device.type == "cuda"
+        assert cli.main(argv) == 0
+        return
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        PipelineRunner(get_config("testing"), MemoryStore())
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        cli.main(argv)
+    assert PipelineRunner(get_config("testing"), MemoryStore(), device="cpu").device.type == "cpu"
+    assert cli.main(argv + ["--device", "cpu"]) == 0
