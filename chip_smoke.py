@@ -44,7 +44,24 @@ Phases:
      (2 batches in flight against 1) in turns; at 512 symbols x 2 days a
      stopped-and-resumed run and a staged ``run_all`` against the fused
      tables and a cubic run (B1 once a sub-batch); the CLI in a
-     subprocess.
+     subprocess;
+  7. the surface task: an ``interpolated`` table of 256 underlyings (192
+     of 12 expiries x 32 strikes, 64 of 6 x 16, call and put, two
+     snapshots a symbol, about 2 % of the latest rows marked by price
+     only) in a parquet store, through ``run_surface_fit`` on the card
+     with the cubic spline (B1 float32), the smoothing spline, parity mode
+     (B1 float64) and local vol: host seconds by phase, surfaces/s, idle
+     share, peak memory, B1 launches by dtype, no plain version called;
+     each run against the same run on CPU tensors, parity mode against
+     SciPy's float64 spline on 32 surfaces, the surface audit, and the
+     CLI (``--task surface`` exits 0, ``--method svi`` exits 2);
+  8. serving: ``run_serve`` over phase 7's store (its 256 underlyings'
+     chains), a client's ticks, flush, 7 refits (median reply latency),
+     stats and stop; the refits against a CPU session fed the same ticks,
+     B2 twice a refit; the same over Arrow Flight where it imports.
+
+B1 is listed twice in the kernel line, float32 and float64, each with its
+launches on every path.
 
 Prints a JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -74,13 +91,26 @@ DEV = "cuda"
 # edges (n=1 and 2, a batch that is no multiple of 4, float64, the
 # global-scratch route of n beyond the staged tiles). n=48 at 983,040 is
 # the not-a-knot reduced system of the surface step (32768 x 30 smiles);
-# n=166 at 768 the pipeline's cubic batch (168 hourly knots, 256 x 3).
-B1_MAIN = {(48, 983_040): "surface step", (166, 768): "cubic batch"}
-B1_CASES = ((48, 983_040, torch.float32, 1.0), (166, 768, torch.float32, 1.0),
-            (50, 4096, torch.float64, 1.0), (50, 1000, torch.float32, 1.0),
-            (1, 4097, torch.float32, 1.0), (2, 4097, torch.float64, 1.0),
-            (257, 4096, torch.float64, 1.0), (500, 2048, torch.float32, 1.0),
-            (24, 4096, torch.float32, 1e38))
+# n=166 at 768 the pipeline's cubic batch (168 hourly knots, 256 x 3);
+# n=30 at 3,072 and n=14 at 512 the surface task's two buckets (192 x 16
+# slices of 32 strikes, 64 x 8 of 16), float32 and, in parity mode,
+# float64; n=6 and 62 the neighbouring buckets (8 and 64 strikes).
+F32, F64 = torch.float32, torch.float64
+B1_MAIN = {(48, 983_040, F32): "surface step", (166, 768, F32): "cubic batch",
+           (30, 3072, F32): "surface task 192x16", (14, 512, F32): "surface task 64x8",
+           (30, 3072, F64): "surface task parity 192x16",
+           (14, 512, F64): "surface task parity 64x8"}
+B1_CASES = ((48, 983_040, F32, 1.0), (166, 768, F32, 1.0),
+            (30, 3072, F32, 1.0), (14, 512, F32, 1.0),
+            (30, 3072, F64, 1.0), (14, 512, F64, 1.0),
+            (6, 512, F64, 1.0), (6, 3072, F64, 1.0), (14, 3072, F64, 1.0),
+            (30, 512, F64, 1.0), (62, 512, F64, 1.0), (62, 3072, F64, 1.0),
+            (50, 4096, F64, 1.0), (50, 1000, F32, 1.0),
+            (1, 4097, F32, 1.0), (2, 4097, F64, 1.0),
+            (257, 4096, F64, 1.0), (500, 2048, F32, 1.0),
+            (24, 4096, F32, 1e38))
+# the surface task's float64 systems all take the staged route
+B1_STAGED_F64 = {(n, batch) for n in (6, 14, 30, 62) for batch in (512, 3072)}
 # scale 1e38: diagonals near float32's largest values, whose reciprocals
 # are subnormal and leave the kernel's fast reciprocal (its full-division
 # sweep runs); x stays of order 0.1
@@ -103,11 +133,23 @@ PIPELINE = dict(symbols=2048, hours=168, drop_frac=0.1, batch=256, bucket=16384,
 # (the JAX package's generator, about 10 % dropped) to the three tables,
 # production config (float32, linear, 256 a batch, the 16,384 bucket);
 # then (d) at 512 symbols x 2 days, 64 a batch (8 batches). After the
-# main run (2 batches in flight), runs with 1 and 2 batches in flight in
-# turns (1, 2, 2, 1).
+# main run (2 batches in flight), one run with 1 and one with 2 batches in
+# flight (cut from four turns: on a slow host the four took over three
+# minutes, and the two orders have measured within their spread).
 RUNNER = dict(symbols=2048, hours=168, drop_frac=0.1, seed=16, batch=256,
               small_symbols=512, small_hours=48, small_batch=64)
-RUNNER_ORDER_TURNS = (1, 2, 2, 1)
+RUNNER_ORDER_TURNS = (1, 2)
+# phase 7, the surface task: 256 underlyings, 192 of 12 expiries x 32
+# strikes and 64 of 6 x 16, call and put (159,744 option symbols, two
+# snapshots each), about 2 % of the latest rows without iv; 32 parity
+# surfaces held to SciPy. Buckets (16, 32) and (8, 16): B1 at n=30 x
+# 3,072 and n=14 x 512.
+SURFACE_TASK = dict(big=(192, 12, 32), small=(64, 6, 16), nan_frac=0.02, seed=17,
+                    sampled=32, n_grid=50, chains=192 * 12 + 64 * 6,
+                    grid_rows=(192 * 12 + 64 * 6) * 50)
+# phase 8, serving phase 7's store: 64 ticks per underlying over a
+# 512-minute window, then 7 refits
+SERVE = dict(ticks=64, window=512, refits=7, seed=18)
 # calls a CUDA graph when a kernel is timed: back to back, as a stream of
 # launches runs them (one a graph adds a graph launch to every call)
 CALLS = 10
@@ -115,6 +157,8 @@ CALLS = 10
 # device-memory bytes/s and float32 operations/s outside the tensor cores
 HBM_BYTES_S = 3.35e12
 F32_OPS_S = 67e12
+# float64 outside the tensor cores (the same data sheet)
+F64_OPS_S = 34e12
 
 
 def module_version(name: str) -> str:
@@ -184,10 +228,11 @@ def same_with_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def timing_row(shape: str, ms: float, plain_ms: float, nbytes: float, ops: float,
-               library_ms, **extra) -> dict:
+               library_ms, ops_s: float = F32_OPS_S, **extra) -> dict:
     """One timed shape: the bound is the larger of the bytes over the
-    card's memory rate and the operations over its float32 rate."""
-    byte_ms, op_ms = nbytes / HBM_BYTES_S * 1e3, ops / F32_OPS_S * 1e3
+    card's memory rate and the operations over its rate for their type
+    (float32 unless ``ops_s`` says otherwise)."""
+    byte_ms, op_ms = nbytes / HBM_BYTES_S * 1e3, ops / ops_s * 1e3
     bound = max(byte_ms, op_ms)
     row = {"shape": shape, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
            "bound_by": "bytes" if byte_ms >= op_ms else "operations",
@@ -236,9 +281,11 @@ def tridiag_cases(tridiag, lib) -> dict:
     bound. Tolerance: 256 ulps of max |x| (diagonally dominant systems:
     Thomas is backward stable with error growth O(n eps), and the kernel's
     fused multiply-adds round each step at most one ulp differently from
-    the plain version's separate multiply and subtract)."""
+    the plain version's separate multiply and subtract). Returns, per
+    dtype name, the worst error, the first main-path shape's row and
+    every main-path row."""
     gen = torch.Generator(device=DEV).manual_seed(11)
-    worst, rows = 0.0, []
+    worst, rows = {"float32": 0.0, "float64": 0.0}, {"float32": [], "float64": []}
     for n, batch, dtype, scale in B1_CASES:
         u = lambda lo, hi: torch.empty((n, batch), dtype=dtype, device=DEV).uniform_(
             lo * scale, hi * scale, generator=gen)
@@ -257,8 +304,11 @@ def tridiag_cases(tridiag, lib) -> dict:
             f"{plan.smem} B shared): max|kernel-plain|={err:.3e} (bound {bound:.3e})")
         check(err <= bound and bool(torch.isfinite(x).all()),
               f"B1 kernel agrees with plain at n={n} batch={batch} {dtype}")
-        worst = max(worst, err)
-        if (n, batch) not in B1_MAIN:
+        if dtype == F64 and (n, batch) in B1_STAGED_F64:
+            check(plan.route == "staged", f"thomas_plan stages n={n} batch={batch} float64")
+        key = str(dtype)[6:]
+        worst[key] = max(worst[key], err)
+        if (n, batch, dtype) not in B1_MAIN:
             continue
         staged = lambda: tridiag.tridiag_solve_cuda(dl, d, du, b)
         scratch = scratch_route(lib, dl, d, du, b)
@@ -267,26 +317,34 @@ def tridiag_cases(tridiag, lib) -> dict:
         tiles = {S: round(device_ms(staged_route(lib, dl, d, du, b, S), 20, CALLS), 5)
                  for S in (32, 64, 128) if 4 * n * S * d.element_size() <= 232448}
         plain_ms = device_ms(lambda: tridiag.tridiag_solve_plain(dl, d, du, b), 5, CALLS)
-        rows.append(timing_row(
-            f"B1 {B1_MAIN[n, batch]} n={n} batch={batch}", (turns[0] + turns[3]) / 2,
-            plain_ms, 5 * n * batch * d.element_size(), 9 * n * batch,
-            dense_solve_ms(dl, d, du, b, x), scratch_route_ms=(turns[1] + turns[2]) / 2,
+        rows[key].append(timing_row(
+            f"B1 {B1_MAIN[n, batch, dtype]} n={n} batch={batch} {key}",
+            (turns[0] + turns[3]) / 2, plain_ms, 5 * n * batch * d.element_size(),
+            9 * n * batch, dense_solve_ms(dl, d, du, b, x),
+            ops_s=F32_OPS_S if dtype == F32 else F64_OPS_S,
+            scratch_route_ms=(turns[1] + turns[2]) / 2,
             turns=[round(t, 5) for t in turns], ms_one_call_a_graph=device_ms(staged, 20),
             systems_a_block=plan.threads,
             ms_by_systems_a_block=tiles))
         del scratch
-    return {"max_abs_err": worst, **rows[0], "shapes": rows}
+    return {key: {"max_abs_err": worst[key], **rows[key][0], "shapes": rows[key]}
+            for key in rows}
+
+
+def _suffix(t) -> str:
+    return "f32" if t.dtype == F32 else "f64"
 
 
 def staged_route(lib, dl, d, du, b, S):
-    """A call of the staged float32 Thomas kernel with S systems a block,
-    outside the wrapper, so it counts no launch."""
+    """A call of the staged Thomas kernel with S systems a block, outside
+    the wrapper, so it counts no launch."""
     n, batch = d.shape
     x = torch.empty_like(b)
+    staged = getattr(lib, f"ivt_thomas_staged_{_suffix(d)}")
 
     def run():
-        err = lib.ivt_thomas_staged_f32(*(a.data_ptr() for a in (dl, d, du, b, x)), n,
-                                        batch, S, torch.cuda.current_stream().cuda_stream)
+        err = staged(*(a.data_ptr() for a in (dl, d, du, b, x)), n,
+                     batch, S, torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"staged-route launch (S={S}) returned {err}")
     return run
 
@@ -296,9 +354,10 @@ def scratch_route(lib, dl, d, du, b):
     outside the wrapper, so it counts no launch."""
     n, batch = d.shape
     x, cp = torch.empty_like(b), torch.empty_like(d)
+    scratch = getattr(lib, f"ivt_thomas_scratch_{_suffix(d)}")
 
     def run():
-        err = lib.ivt_thomas_scratch_f32(
+        err = scratch(
             *(a.data_ptr() for a in (dl, d, du, b, x, cp)), n, batch,
             torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"scratch-route launch returned {err}")
@@ -1319,6 +1378,541 @@ def runner_cli(root, work) -> None:
     log(f"  (e) {' '.join(cmd[1:])}: exit 0, keys {sorted(out)}")
 
 
+# -- phase 7: the surface task ----------------------------------------------
+
+# expiries of the surface task's chains, days from the snapshot
+SURFACE_DAYS = (7, 14, 21, 30, 46, 60, 74, 91, 109, 140, 200, 291)
+SURFACE_RUNS = (("cubic_spline", "cubic_spline", {}),
+                ("smoothing_spline", "smoothing_spline", {}),
+                ("parity", "cubic_spline", {"compensated": True}),
+                ("local vol", "cubic_spline", {"compute_local_vol": True}))
+
+
+def make_surface_table(rng):
+    """The ``interpolated`` table of SURFACE_TASK: per underlying its
+    expiries x strikes, call and put at each strike (one iv), two
+    snapshots a symbol (the older one an hour earlier with another iv and
+    price, which the task must not use); about 2 % of the latest rows have
+    NaN iv and a Black-Scholes mark price. Returns the frame and the
+    latest rows' truth (symbol -> (underlying, T, k, iv))."""
+    import pandas as pd
+    from scipy.special import ndtr
+
+    P = SURFACE_TASK
+    latest = pd.Timestamp("2023-03-20 10:00")
+    frames, u0 = [], 0
+    for n_und, E, N in (P["big"], P["small"]):
+        days = np.array(SURFACE_DAYS[:E] if E == len(SURFACE_DAYS) else SURFACE_DAYS[1::2][:E])
+        labels = [(latest + pd.Timedelta(days=int(d))).strftime("%d%b%y").lower() for d in days]
+        T = days / 365.0
+        S = 100 * np.exp(rng.normal(0, 0.5, n_und))
+        width = 0.3 + 0.3 * np.sqrt(T / T.max())
+        K = S[:, None, None] * np.exp(np.linspace(-1, 1, N)[None, None, :] * width[None, :, None])
+        # the strike as the symbol spells it, so k = log(K / S) is exact
+        K = np.array([float(f"{x:.2f}") for x in K.ravel()]).reshape(K.shape)
+        k = np.log(K / S[:, None, None])
+        iv = (rng.uniform(0.3, 0.8, (n_und, 1, 1)) + rng.uniform(-0.15, 0.0, (n_und, 1, 1)) * k
+              + rng.uniform(0.05, 0.3, (n_und, 1, 1)) * k * k)
+        shape = (n_und, E, N, 2)
+        u = np.broadcast_to(np.arange(u0, u0 + n_und)[:, None, None, None], shape).ravel()
+        e = np.broadcast_to(np.arange(E)[None, :, None, None], shape).ravel()
+        cp = np.broadcast_to(np.array([True, False]), shape).ravel()
+        b = lambda a: np.broadcast_to(a[..., None], shape).ravel()
+        Kf, ivf, kf, Sf = b(K), b(iv), b(k), np.repeat(S, E * N * 2)
+        Tf = T[e]
+        names = [f"u{ui:03d}-{labels[ei]}-{Ki:.2f}-{'c' if c else 'p'}"
+                 for ui, ei, Ki, c in zip(u, e, Kf, cp)]
+        r = 0.03
+        sq = ivf * np.sqrt(Tf)
+        d1 = (np.log(Sf / Kf) + (r + 0.5 * ivf ** 2) * Tf) / sq
+        d2 = d1 - sq
+        disc = np.exp(-r * Tf)
+        price = np.where(cp, Sf * ndtr(d1) - Kf * disc * ndtr(d2),
+                         Kf * disc * ndtr(-d2) - Sf * ndtr(-d1))
+        frames.append(pd.DataFrame({
+            "symbol": names, "underlying": [f"u{ui:03d}" for ui in u],
+            "expiry": [labels[ei] for ei in e], "k": kf,
+            "true_iv": ivf, "underlying_price": Sf, "time_to_maturity": Tf,
+            "interest_rate": r, "mark_price": price}))
+        u0 += n_und
+    truth = pd.concat(frames, ignore_index=True)
+    # the quotes without iv are out of the money (the wings a desk marks
+    # by price), 2 % of all latest rows
+    iv = truth["true_iv"].to_numpy().copy()
+    K = truth["symbol"].str.split("-").str[-2].astype(float).to_numpy()
+    call = truth["symbol"].str.endswith("-c").to_numpy()
+    otm = np.where(call, K > truth["underlying_price"], K < truth["underlying_price"])
+    iv[otm & (rng.uniform(size=len(iv)) < P["nan_frac"] * len(iv) / otm.sum())] = np.nan
+    cols = ["symbol", "underlying_price", "time_to_maturity", "interest_rate", "mark_price"]
+    new = truth[cols].assign(date=latest, iv=iv)
+    old = truth[cols].assign(date=latest - pd.Timedelta(hours=1), iv=truth["true_iv"] + 0.25,
+                             underlying_price=truth["underlying_price"] * 1.01)
+    return pd.concat([old, new], ignore_index=True), truth
+
+
+class TimedStore:
+    """A store whose reads and writes add their host seconds to ``host``."""
+
+    def __init__(self, store, host):
+        self.store, self.host = store, host
+
+    def _timed(self, name, fn, *a, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            self.host[name] += time.perf_counter() - t
+
+    def read(self, *a, **kw):
+        return self._timed("read", self.store.read, *a, **kw)
+
+    def write(self, *a, **kw):
+        return self._timed("write", self.store.write, *a, **kw)
+
+
+class SurfaceProbe:
+    """While installed: host seconds of the surface task's phases
+    (``build_chains``, ``pack_chain_group``, the family's fit and local
+    vol), CUDA events around the fit on the card, the chains the run
+    built (or ``chains`` in their place), and on the card the calls of the
+    kernels' plain versions."""
+
+    def __init__(self, task, models, tridiag, agg, on_card: bool, chains=None):
+        self.task, self.models, self.mods, self.on_card = task, models, (tridiag, agg), on_card
+        self.given = chains
+
+    def __enter__(self):
+        from collections import defaultdict
+        self.host, self.events, self.chains, self.plain = defaultdict(float), [], None, 0
+        task, models = self.task, self.models
+        self.orig = (task.build_chains, task.pack_chain_group, models.get,
+                     self.mods[0].tridiag_solve_plain, self.mods[1].aggregate_ohlcv_plain)
+        build, pack, get, plain_b1, plain_b2 = self.orig
+
+        def timed(name, fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.host[name] += time.perf_counter() - t
+            return run
+
+        def on_device(fn):
+            def run(*a, **kw):
+                if self.on_card:
+                    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                    start.record()
+                out = timed("fit", fn)(*a, **kw)
+                if self.on_card:
+                    end.record()
+                    self.events.append((start, end))
+                return out
+            return run
+
+        def chains(*a, **kw):
+            self.chains = (self.given if self.given is not None
+                           else timed("build_chains", build)(*a, **kw))
+            return self.chains
+
+        def family(name):
+            m = get(name)
+            return models.SurfaceModel(name=m.name, fit_eval=on_device(m.fit_eval),
+                                       attach_local_vol=on_device(m.attach_local_vol))
+
+        def counted(fn):
+            def run(*a, **kw):
+                self.plain += 1
+                return fn(*a, **kw)
+            return run
+
+        task.build_chains, task.pack_chain_group, models.get = chains, timed("pack", pack), family
+        if self.on_card:
+            self.mods[0].tridiag_solve_plain = counted(plain_b1)
+            self.mods[1].aggregate_ohlcv_plain = counted(plain_b2)
+        return self
+
+    def __exit__(self, *exc):
+        (self.task.build_chains, self.task.pack_chain_group, self.models.get,
+         self.mods[0].tridiag_solve_plain, self.mods[1].aggregate_ohlcv_plain) = self.orig
+
+    def busy_s(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+
+def surface_config(get_config, work, surface: dict):
+    cfg = get_config("production")
+    cfg.checkpoint.manifest_dir = str(work / "runs")
+    cfg.monitoring.snapshot_dir = str(work / "snapshots")
+    for key, value in surface.items():
+        setattr(cfg.surface, key, value)
+    return cfg
+
+
+def sorted_surfaces(store, task):
+    df = store.read(task.SURFACES)
+    return df.sort_values(["underlying", "expiry_t", "log_moneyness"]).reset_index(drop=True)
+
+
+def truth_of(chain, by_key):
+    """The generating (k, iv) of a chain's strikes: for each chain k the
+    nearest generated k of its (underlying, expiry)."""
+    want = by_key.get_group((chain["underlying"], chain["expiry"])).groupby("k")["true_iv"].first()
+    k_true = want.index.to_numpy()
+    idx = np.clip(np.searchsorted(k_true, chain["k"] - 1e-12), 0, len(k_true) - 1)
+    return k_true[idx], want.to_numpy()[idx]
+
+
+def inversion_error(chains, truth) -> float:
+    """Largest |iv - generating iv| over the chains' strikes."""
+    by_key = truth.groupby(["underlying", "expiry"])
+    return max(float(np.abs(c["iv"] - truth_of(c, by_key)[1]).max()) for c in chains)
+
+
+def compare_chains(card, cpu, truth):
+    """Chains on the card against those on CPU tensors and against the
+    generated latest rows: keys, T and k exact between the devices, k
+    within 1e-15 of log(K / S) of the latest rows; iv exact where the
+    latest row had one, and where it was inverted from the mark price
+    (float64 Newton on each device) within 1e-6 between the devices and
+    1e-5 of the truth (a strike's iv is the mean of its call's and put's,
+    so one inverted quote moves it by half its error); the older
+    snapshot's iv (0.25 away) is never read. Returns the worst errors
+    against the truth and between the devices."""
+    check(len(card) == len(cpu) == SURFACE_TASK["chains"],
+          f"(c) {len(card)} chains on the card, {len(cpu)} on CPU tensors")
+    by_key = truth.groupby(["underlying", "expiry"])
+    worst, between = 0.0, 0.0
+    for a, b in zip(card, cpu):
+        check((a["underlying"], a["expiry"], a["T"]) == (b["underlying"], b["expiry"], b["T"])
+              and np.array_equal(a["k"], b["k"]), f"(c) chain {a['underlying']} {a['expiry']}")
+        k_true, iv_true = truth_of(a, by_key)
+        check(bool((np.abs(k_true - a["k"]) <= 1e-15).all()),
+              f"(c) chain {a['underlying']} {a['expiry']}: k = log(K / S) of the latest rows")
+        d_truth, d_cpu = np.abs(a["iv"] - iv_true), np.abs(a["iv"] - b["iv"])
+        worst, between = max(worst, float(d_truth.max())), max(between, float(d_cpu.max()))
+        check(bool((d_truth <= 1e-5).all() and (d_cpu <= 1e-6).all()),
+              f"(c) chain {a['underlying']} {a['expiry']}: iv within 1e-5 of the truth "
+              f"({d_truth.max():.3e}) and 1e-6 of CPU ({d_cpu.max():.3e})")
+    return worst, between
+
+
+def compare_surfaces(card, cpu, parity: bool) -> float:
+    """(c): the card's table against the CPU run's on the same chains:
+    keys, flags and row counts exact; float32 grids within 256 eps32 of
+    each column's scale; parity mode's float64 pair within 1e-12."""
+    check(len(card) == len(cpu) and list(card.columns) == list(cpu.columns),
+          f"(c) {len(card)} rows / {len(cpu)} rows, same columns")
+    for c in ("underlying", "expiry_t", "butterfly_ok", "calendar_ok"):
+        check(np.array_equal(card[c].to_numpy(), cpu[c].to_numpy()), f"(c) {c} equal")
+    worst = 0.0
+    for c in card.columns:
+        if c in ("underlying", "expiry_t", "butterfly_ok", "calendar_ok"):
+            continue
+        x, y = card[c].to_numpy(np.float64), cpu[c].to_numpy(np.float64)
+        check(np.array_equal(np.isnan(x), np.isnan(y)), f"(c) {c} NaN mask")
+        d = np.nan_to_num(np.abs(x - y))
+        scale = max(1.0, float(np.nanmax(np.abs(y))))
+        check(bool((d <= 256 * EPS32 * scale).all()), f"(c) {c} within 256 eps32 of {scale:.3g} "
+              f"(max {d.max():.3e})")
+        worst = max(worst, float(d.max()) / scale)
+    if parity:
+        pair = lambda f: f["total_variance"].to_numpy(np.float64) + f["total_variance_lo"].to_numpy(
+            np.float64)
+        d = np.abs(pair(card) - pair(cpu))
+        check(bool((d <= 1e-12).all()), f"(c) parity pair within 1e-12 (max {d.max():.3e})")
+    return worst
+
+
+def parity_oracle(task, chains, table, rng) -> float:
+    """Parity mode on SURFACE_TASK["sampled"] surfaces: f64(total_variance)
+    + f64(total_variance_lo) against SciPy's float64 not-a-knot spline
+    through the same float32 inputs (the packed batch the fit saw), on the
+    float64 linspace between the float32 support ends."""
+    from scipy.interpolate import CubicSpline
+
+    by_und = {}
+    for c in chains:
+        by_und.setdefault(c["underlying"], []).append(c)
+    m = SURFACE_TASK["n_grid"]
+    worst = 0.0
+    for u in rng.choice(sorted(by_und), SURFACE_TASK["sampled"], replace=False):
+        slices = sorted(by_und[u], key=lambda c: c["T"])
+        E_pad = task._pow2_at_least(max(len(slices), 2), 2)
+        n_pad = task._pow2_at_least(max(len(c["k"]) for c in slices), 8)
+        k, iv, T, _, _ = task.pack_chain_group([(u, slices)], E_pad, n_pad)
+        k, iv, T = (np.asarray(a, np.float32).astype(np.float64)[0] for a in (k, iv, T))
+        lo = min(k[:, 0].max(), k[:, -1].min())
+        hi = max(k[:, 0].max(), k[:, -1].min())
+        q = lo + (hi - lo) * np.linspace(0.0, 1.0, m)
+        rows = table[table["underlying"] == u].sort_values(["expiry_t", "log_moneyness"])
+        got = (rows["total_variance"].to_numpy(np.float64)
+               + rows["total_variance_lo"].to_numpy(np.float64)).reshape(len(slices), m)
+        for e in range(len(slices)):
+            ref = CubicSpline(k[e], iv[e] ** 2 * T[e], bc_type="not-a-knot")(q)
+            worst = max(worst, float(np.abs(got[e] - ref).max()))
+    check(worst < 1e-9, f"(d) parity pair vs SciPy float64 on {SURFACE_TASK['sampled']} "
+          f"surfaces < 1e-9 (got {worst:.3e})")
+    return worst
+
+
+def surface_task_phase(reset_counts, read_counts, tridiag, agg) -> dict:
+    """Phase 7: ``run_surface_fit`` from a parquet store on the card, on
+    SURFACE_TASK's 256 underlyings, once for each of SURFACE_RUNS: (a)
+    host seconds by phase, surfaces/s, idle share, peak memory; (b) B1
+    launches by dtype, no plain version called; (c) the same run on CPU
+    tensors; (d) parity mode against SciPy; (e) the audit; (f) the CLI.
+    Returns the store's root, the launches of the runs and the rates."""
+    import pandas as pd
+    from iv_interpolation_tpu_torch import models
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import check_results
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline import surface_task as task
+
+    P = SURFACE_TASK
+    root = Path(__file__).resolve().parent
+    work = root / "build" / "chip_smoke_surface"
+    rng = np.random.default_rng(P["seed"])
+    t0 = time.perf_counter()
+    frame, truth = make_surface_table(rng)
+    store = make_store(st, work / "data")
+    store.write(st.INTERPOLATED, frame, upsert_keys=["symbol", "date"])
+    cpu_store = st.MemoryStore()
+    cpu_store.write(st.INTERPOLATED, frame)
+    n_nan = int(frame["iv"].isna().sum())
+    log(f"  data: {frame['symbol'].nunique():,} option symbols of 256 underlyings x 2 "
+        f"snapshots = {len(frame):,} rows, {n_nan:,} latest rows without iv; made and "
+        f"written in {time.perf_counter() - t0:.2f} s (host, set-up)")
+    t = time.perf_counter()
+    cpu_chains = task.build_chains(frame, device="cpu")
+    log(f"  chains on CPU tensors in {time.perf_counter() - t:.2f} s")
+    # the prices inverted in float32, as the JAX package does outside x64,
+    # against the float64 inversion the port keeps (ROADMAP C7)
+    errs = {str(dt)[6:]: inversion_error(task.build_chains(frame, device=DEV, dtype=dt), truth)
+            for dt in (torch.float32, torch.float64)}
+    log(f"  iv inverted from mark prices on {DEV}, max |iv - generating iv|: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    launches = {"b1_f32": 0, "b1_f64": 0, "b2": 0}
+    rates = {}
+    for name, method, surface in SURFACE_RUNS:
+        cfg = surface_config(get_config, work, dict(surface, smile_method=method))
+        # warm-up on one underlying: the first use of each device kernel
+        # (module loading, library handles) stays out of the timed run
+        task.run_surface_fit(cfg, store, limit=12, device=DEV)
+        store.drop(task.SURFACES)
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with SurfaceProbe(task, models, tridiag, agg, on_card=True) as probe:
+            timed = TimedStore(store, probe.host)
+            t = time.perf_counter()
+            rep = task.run_surface_fit(cfg, timed, device=DEV)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        counts = read_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        busy = probe.busy_s()
+        host = dict(probe.host)
+        host["unpack"] = wall - sum(host.values())
+        check(rep["surfaces"] == 256 and rep["grid_rows"] == P["grid_rows"]
+              and rep["method"] == method, f"(a) {name}: 256 surfaces, {P['grid_rows']} rows: {rep}")
+        want = {"cubic_spline": (2, 0), "smoothing_spline": (0, 0), "parity": (0, 2),
+                "local vol": (2, 0)}[name]
+        check((counts["b1_f32"], counts["b1_f64"], counts["b2"]) == want + (0,),
+              f"(b) {name}: B1 float32 / float64 once a bucket as the family needs: {counts}")
+        check(probe.plain == 0, f"(b) {name}: no plain version called on the card ({probe.plain})")
+        for k in launches:
+            launches[k] += counts[k]
+        rates[name] = 256 / wall
+        log(f"  (a) {name}: {wall:.3f} s, {256 / wall:,.0f} surfaces/s end to end; host s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+            + f"; device busy {busy * 1e3:.2f} ms (fit), idle share {1 - busy / wall:.1%}, "
+            f"peak {peak:.2f} GiB; launches {counts}; butterfly_ok {rep['butterfly_ok']}, "
+            f"calendar_ok {rep['calendar_ok']}")
+        card_chains, card_table = probe.chains, sorted_surfaces(store, task)
+        # (c) the chains against those built on CPU tensors, then the same
+        # run on CPU tensors fed the card's chains
+        iv_err, iv_dev = compare_chains(card_chains, cpu_chains, truth)
+        cpu_store.drop(task.SURFACES)
+        t = time.perf_counter()
+        with SurfaceProbe(task, models, tridiag, agg, on_card=False, chains=card_chains):
+            cpu_rep = task.run_surface_fit(cfg, cpu_store, device="cpu")
+        check(cpu_rep == rep, f"(c) same summary: {cpu_rep}")
+        err = compare_surfaces(card_table, sorted_surfaces(cpu_store, task), name == "parity")
+        log(f"  (c) {name} on CPU tensors in {time.perf_counter() - t:.1f} s: grids within "
+            f"{err:.3e} of scale; chains' iv max err {iv_err:.3e} vs truth, {iv_dev:.3e} "
+            f"card vs CPU")
+        if name == "parity":
+            worst = parity_oracle(task, card_chains, card_table, rng)
+            log(f"  (d) parity pair vs SciPy float64 on {P['sampled']} surfaces: max {worst:.3e}")
+        if name == "local vol":
+            lv = card_table["local_vol"].to_numpy()
+            check(np.isfinite(lv).mean() > 0.5 and bool((lv[np.isfinite(lv)] >= 0).all()),
+                  "(a) local vol: most cells real, none negative")
+    audit = check_results.check_surface_results(store)
+    check(audit["ok"] and audit["surfaces"] == 256, f"(e) surface audit: {audit.get('reason')}")
+    log(f"  (e) audit: {audit['surfaces']} surfaces, iv range {audit['iv_range']}, "
+        f"butterfly_ok {audit['butterfly_ok']}, calendar_ok {audit['calendar_ok']}")
+    if isinstance(store, st.ParquetStore):
+        surface_cli(root, work)
+    else:
+        log("  (f) pyarrow does not import: the CLI on a parquet store was not run")
+    return {"store": store, "work": work, "launches": launches, "rates": rates}
+
+
+def surface_cli(root, work) -> None:
+    """(f): ``iv-tpu-torch --task surface --json`` on the phase's store
+    exits 0 on the card, ``--method svi`` exits 2 naming A5."""
+    cli_dir = work / "cli"
+    cli_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (str(root), os.environ.get("PYTHONPATH", "")) if p))
+    base = [sys.executable, "-m", "iv_interpolation_tpu_torch.cli", "--task", "surface",
+            "--storage", "parquet", "--data-root", str(work / "data"), "--json",
+            "--device", DEV]
+    proc = subprocess.run(base, cwd=cli_dir, env=env, capture_output=True, text=True,
+                          timeout=300)
+    check(proc.returncode == 0, f"(f) the surface CLI exits 0: {proc.stderr[-2000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    check(out["surface"]["surfaces"] == 256, f"(f) the CLI fitted 256 surfaces: {out['surface']}")
+    svi = subprocess.run(base + ["--method", "svi"], cwd=cli_dir, env=env, capture_output=True,
+                         text=True, timeout=300)
+    check(svi.returncode == 2 and "ROADMAP: A5" in svi.stderr,
+          f"(f) --method svi exits 2 naming A5: {svi.returncode} {svi.stderr[-500:]}")
+    log(f"  (f) {' '.join(base[1:])}: exit 0, {out['surface']}; --method svi: exit 2 "
+        f"({svi.stderr.strip()})")
+
+
+# -- phase 8: serving ----------------------------------------------------------
+
+def serve_ticks(rng, unds):
+    """SERVE["ticks"] ticks per underlying over the session's window,
+    minutes sorted, float32 prices (exact in JSON and in Arrow)."""
+    P = SERVE
+    n = P["ticks"]
+    per_min = 0.5 / np.sqrt(365.25 * 24 * 60)
+    minute = np.sort(rng.integers(0, P["window"], (len(unds), n)), axis=-1)
+    price = (100 * np.exp(np.cumsum(rng.normal(0, per_min, (len(unds), n)), axis=-1))
+             ).astype(np.float32)
+    size = rng.uniform(0, 5, (len(unds), n)).astype(np.float32)
+    cols = {"underlying": np.repeat(np.asarray(unds, dtype=object), n),
+            "minute": minute.ravel(), "price": price.ravel(), "size": size.ravel()}
+    lines = [{"underlying": u, "minute": int(m), "price": float(p), "size": float(s)}
+             for u, m, p, s in zip(*cols.values())]
+    return cols, lines
+
+
+def serving_phase(store, reset_counts, read_counts) -> dict:
+    """Phase 8: ``run_serve`` over phase 7's store (256 underlyings from
+    their chains) on the card; a client sends SERVE["ticks"] ticks per
+    underlying, flush, SERVE["refits"] refits (median reply latency on
+    the host clock), stats and stop; the refit replies against a CPU
+    session fed the same ticks; B2 twice a refit; then the same over
+    Arrow Flight where ``pyarrow.flight`` imports."""
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import flight_service as fs
+    from iv_interpolation_tpu_torch.pipeline import serve
+
+    P = SERVE
+    cfg = get_config("production")
+    rng = np.random.default_rng(P["seed"])
+    reset_counts()
+    t = time.perf_counter()
+    server = serve.run_serve(cfg, store, port=0, blocking=False, device=DEV)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t
+    unds = server.session.underlyings
+    check(len(unds) == 256, f"the server serves the store's 256 underlyings ({len(unds)})")
+    cols, lines = serve_ticks(rng, unds)
+    n_ticks = len(lines)
+    send = lambda msgs: serve.send_lines("127.0.0.1", server.port, msgs, timeout=120)
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        (flush,) = send(lines + [{"cmd": "flush"}])
+        ingest_s = time.perf_counter() - t
+        refits, latency = [], []
+        for _ in range(P["refits"]):
+            t = time.perf_counter()
+            refits += send([{"cmd": "refit"}])
+            latency.append(time.perf_counter() - t)
+        (stats,) = send([{"cmd": "stats"}])
+        (stop,) = send([{"cmd": "stop"}])
+        counts = read_counts()
+    finally:
+        server.stop()
+    check(flush["ok"] and flush["total"] == n_ticks and stats["ticks_seen"] == n_ticks
+          and stop == {"ok": True}, f"(a) flush / stats / stop: {flush} {stats} {stop}")
+    check(all(r["ok"] for r in refits) and all(r == refits[0] for r in refits),
+          "(a) every refit reply ok and the same")
+    check(counts["b2"] == 2 * P["refits"] and counts["b1_f64"] == 0,
+          f"(b) B2 twice a refit ({P['refits']} refits): {counts}")
+    med = sorted(latency)[len(latency) // 2] * 1e3
+    log(f"  (a) JSONL: set-up {setup_s:.2f} s, {n_ticks:,} ticks "
+        f"+ flush in {ingest_s:.2f} s, refit reply ms {[round(x * 1e3, 2) for x in latency]}, "
+        f"median {med:.2f}; launches {counts}")
+    # (c) a CPU session fed the same ticks
+    cpu, _ = serve.build_session(cfg, store, device="cpu")
+    cpu.ingest_ticks(cols)
+    ref = cpu.refit()
+    reply = refits[0]
+    rv, atm = ref.realized_vol.numpy(), ref.iv_grid[:, 0, ref.iv_grid.shape[-1] // 2].numpy()
+    rv_err = atm_err = 0.0
+    for i, u in enumerate(unds):
+        check(reply["butterfly_ok"][u] == bool(ref.butterfly_ok[i]), f"(c) butterfly_ok {u}")
+        e_rv = abs(reply["realized_vol"][u] - float(rv[i]))
+        e_atm = abs(reply["atm_iv"][u] - float(atm[i]))
+        check(e_rv <= 5e-7 + 128 * EPS32 * abs(float(rv[i])), f"(c) realized_vol {u} ({e_rv:.3e})")
+        check(e_atm <= 5e-7 + 1e-4 * abs(float(atm[i])) + 2e-5, f"(c) atm_iv {u} ({e_atm:.3e})")
+        rv_err, atm_err = max(rv_err, e_rv), max(atm_err, e_atm)
+    log(f"  (c) vs a CPU session: realized_vol max err {rv_err:.3e}, atm_iv {atm_err:.3e}, "
+        f"butterfly_ok equal ({sum(reply['butterfly_ok'].values())}/256)")
+    out = {"launches": {"b2": counts["b2"]}, "refit_ms": med, "flight": False}
+    if not fs.HAVE_FLIGHT:
+        log("  (d) pyarrow.flight does not import: the Flight transport was not run")
+        return out
+    import pyarrow.flight as fl
+    reset_counts()
+    fserver = fs.run_serve_flight(cfg, store, port=0, blocking=False, device=DEV)
+    try:
+        client = fl.connect(f"grpc+tcp://127.0.0.1:{fserver.port}")
+        opts = fl.FlightCallOptions(timeout=120)
+        reset_counts()
+        fs.put_ticks(client, list(cols["underlying"]), cols["minute"], cols["price"],
+                     cols["size"])
+        fflush = fs.action_json(client, "flush")
+        tables, flat = [], []
+        for _ in range(P["refits"]):
+            t = time.perf_counter()
+            tables.append(client.do_get(fl.Ticket(b"refit"), options=opts).read_all())
+            flat.append(time.perf_counter() - t)
+        fstats = fs.action_json(client, "stats")
+        fcounts = read_counts()
+        fstop = fs.action_json(client, "stop")
+        client.close()
+    finally:
+        fserver.shutdown()
+    check(fflush["total"] == n_ticks and fstats["ticks_seen"] == n_ticks and fstop["ok"],
+          f"(d) Flight flush / stats / stop: {fflush} {fstats}")
+    check(fcounts["b2"] == 2 * P["refits"], f"(d) Flight: B2 twice a refit: {fcounts}")
+    tab = {c: tables[0].column(c).to_pylist() for c in tables[0].column_names}
+    check(tab["underlying"] == list(unds), "(d) Flight rows in the session's order")
+    for i, u in enumerate(unds):
+        check(tab["butterfly_ok"][i] == reply["butterfly_ok"][u]
+              and abs(tab["realized_vol"][i] - reply["realized_vol"][u]) <= 5e-7 + 1e-12
+              and abs(tab["atm_iv"][i] - reply["atm_iv"][u]) <= 5e-7 + 1e-12,
+              f"(d) Flight agrees with the JSONL reply for {u}")
+    fmed = sorted(flat)[len(flat) // 2] * 1e3
+    out["launches"]["b2"] += fcounts["b2"]
+    out.update(flight=True, flight_refit_ms=fmed)
+    log(f"  (d) Arrow Flight (pyarrow {module_version('pyarrow')}): refit reply ms "
+        f"{[round(x * 1e3, 2) for x in flat]}, median {fmed:.2f}; agrees with JSONL; "
+        f"launches {fcounts}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
@@ -1369,10 +1963,16 @@ def main() -> int:
     # and read just after it
     def reset_counts():
         tridiag.tridiag_solve_cuda.launches = 0
+        tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
         agg.aggregate_ohlcv_cuda.launches = 0
 
     def read_counts():
         return {"b1": tridiag.tridiag_solve_cuda.launches,
+                "b2": agg.aggregate_ohlcv_cuda.launches}
+
+    def read_by_dtype():
+        by = tridiag.tridiag_solve_cuda.launches_by_dtype
+        return {"b1_f32": by["float32"], "b1_f64": by["float64"],
                 "b2": agg.aggregate_ohlcv_cuda.launches}
 
     reset_counts()
@@ -1404,27 +2004,60 @@ def main() -> int:
     log("phase 6: the host runner")
     log(f"  card: {smi.splitlines()[0]}")
     host = host_runner(reset_counts, read_counts)
-    launches = {k: surface_stream[k] + fused[k] + host["launches"][k] for k in fused}
     log(f"  launches: {host['launches']}; dispatch orders, wall s by batches in flight: "
-        f"{host['order_s']}")
+        f"{host['order_s']}; phase 6 done at {time.perf_counter() - t_start:.1f} s")
+    check(tridiag.tridiag_solve_cuda.launches_by_dtype["float64"] == 0,
+          "phases 3-6 solve in float32 only")
+    log("phase 7: the surface task")
+    surf_task = surface_task_phase(reset_counts, read_by_dtype, tridiag, agg)
+    log(f"  launches: {surf_task['launches']}; phase 7 done at "
+        f"{time.perf_counter() - t_start:.1f} s")
+    log("phase 8: serving")
+    served = serving_phase(surf_task["store"], reset_counts, read_by_dtype)
+    shutil.rmtree(surf_task["work"], ignore_errors=True)
+    log(f"  launches: {served['launches']}; phase 8 done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(f"  summary: {surf['surfaces_per_s']:,.0f} surfaces/s, warm refit "
         f"{stream['warm_refit_ms']:.3f} ms ({stream['underlyings_per_s']:,.0f} "
         f"underlyings/s), fused_batch {pipe['rows_per_s']:,.0f} output rows/s, "
-        f"runner {host['rows_per_s']:,.0f} output rows/s ({host['store']}); "
-        f"all phases done at {time.perf_counter() - t_start:.1f} s")
+        f"runner {host['rows_per_s']:,.0f} output rows/s ({host['store']}), surface task "
+        + ", ".join(f"{k} {v:,.0f}" for k, v in surf_task["rates"].items())
+        + f" surfaces/s, served refit {served['refit_ms']:.2f} ms; all phases done at "
+        f"{time.perf_counter() - t_start:.1f} s")
     b2["max_abs_err"] = max(b2["max_abs_err"], checks["b2_err"])
 
-    # per kernel: the numbers of its first main-path shape (B1 the surface
-    # step, B2 the candle stage), and every main-path shape under "shapes"
+    # launches on each main path, by kernel (phases 3-6 solve in float32)
+    paths = {
+        "tridiag_thomas_f32": {
+            "surface step + streaming (phases 3-4)": surface_stream["b1"],
+            "fused_batch (phase 5)": fused["b1"], "runner (phase 6)": host["launches"]["b1"],
+            "surface task (phase 7)": surf_task["launches"]["b1_f32"]},
+        "tridiag_thomas_f64": {"surface task parity (phase 7)": surf_task["launches"]["b1_f64"]},
+        "stream_agg": {
+            "streaming (phase 4)": surface_stream["b2"], "fused_batch (phase 5)": fused["b2"],
+            "runner (phase 6)": host["launches"]["b2"],
+            "serving refits (phase 8)": served["launches"]["b2"]},
+    }
+    check(all(n > 0 for n in paths["tridiag_thomas_f64"].values())
+          and paths["tridiag_thomas_f32"]["surface task (phase 7)"] > 0
+          and paths["stream_agg"]["serving refits (phase 8)"] > 0,
+          f"B1 float32 and float64 ran on the surface task, B2 on the served refits: {paths}")
+    thomas = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/tridiag_thomas.cu",
+                  replaces="iv_interpolation_tpu/ops/pallas/tridiag_pallas.py:57")
+    # per kernel: the numbers of its first main-path shape (B1 float32 the
+    # surface step, B1 float64 the parity surface task's larger bucket, B2
+    # the candle stage), and every main-path shape under "shapes"
     kernels = [
-        {"name": "tridiag_thomas", "route": "cuda",
-         "source": "iv_interpolation_tpu_torch/csrc/tridiag_thomas.cu",
-         "replaces": "iv_interpolation_tpu/ops/pallas/tridiag_pallas.py:57",
-         "launches": launches["b1"], **b1},
+        {"name": "tridiag_thomas_f32", **thomas,
+         "launches": sum(paths["tridiag_thomas_f32"].values()),
+         "paths": paths["tridiag_thomas_f32"], **b1["float32"]},
+        {"name": "tridiag_thomas_f64", **thomas,
+         "launches": sum(paths["tridiag_thomas_f64"].values()),
+         "paths": paths["tridiag_thomas_f64"], **b1["float64"]},
         {"name": "stream_agg", "route": "cuda",
          "source": "iv_interpolation_tpu_torch/csrc/stream_agg.cu",
          "replaces": "iv_interpolation_tpu/ops/pallas/stream_agg_pallas.py:163",
-         "launches": launches["b2"], **b2},
+         "launches": sum(paths["stream_agg"].values()), "paths": paths["stream_agg"], **b2},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,7 +2,9 @@
 
 The operator surface of the JAX package's ``iv-tpu``, on one card:
 
-  --task {interpolation,bridge,candles,both,pipeline,all,stream}
+  --task {interpolation,bridge,candles,both,pipeline,all,surface,stream,serve}
+  --method / --parity  the surface family and parity mode of --task surface
+  --serve-port / --serve-transport {jsonl,flight}  --task serve
   --test            3-symbol smoke run
   --resume BATCH_ID re-enqueue pending/error symbols
   --generate-sample-candles / --generate-sample-tickers, --symbols N
@@ -13,9 +15,10 @@ The operator surface of the JAX package's ``iv-tpu``, on one card:
                     default) unless ``--device cpu`` is given
 
 Run as ``iv-tpu-torch ...`` or ``python -m iv_interpolation_tpu_torch.cli``.
-The JAX CLI's tasks and flags that are not ported yet are accepted by
-the parser and refused with exit code 2 and the ROADMAP item that will
-bring them; none is ignored.
+The JAX CLI's flags that are not ported yet, and the surface families
+that are not (``--method svi|essvi|sabr|rbf|ah``), are accepted by the
+parser and refused with exit code 2 and the ROADMAP item that will bring
+them; none is ignored.
 """
 
 from __future__ import annotations
@@ -26,21 +29,19 @@ import os
 import sys
 import time
 
+from iv_interpolation_tpu_torch import models
+
 # dest -> the ROADMAP item that ports it, for the JAX CLI's flags the
 # port refuses
-_SURFACE = "surface_task.py with the models/ registry"
 _VIEW = "visualize.py and the live monitor"
 _PG = "PostgresStore, pgwire.py and schema.py"
-_SERVE = "serve.py and flight_service.py"
 _VALIDATE = "validate.py and --profile"
 NOT_PORTED = {
-    "method": _SURFACE, "parity": "A2, parity mode",
     "monitor": _VIEW, "with_monitor": _VIEW, "visualize": _VIEW,
     "plot_dir": _VIEW, "plot_symbol": _VIEW,
     "check_db": _PG, "profile": _VALIDATE, "validate_only": _VALIDATE,
-    "estimate": _VALIDATE, "serve_port": _SERVE, "serve_transport": _SERVE,
+    "estimate": _VALIDATE,
 }
-TASKS_NOT_PORTED = {"surface": _SURFACE, "serve": _SERVE}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -52,8 +53,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "pipeline", "all", "surface", "stream", "serve"],
                    default="all",
                    help="stage(s) to run; 'pipeline' = fused on-device "
-                        "chain, 'all' = staged via storage "
-                        "('surface' and 'serve' are not ported yet)")
+                        "chain, 'all' = staged via storage, 'surface' = "
+                        "fit vol surfaces, 'serve' = streaming server")
     p.add_argument("--device", default="cuda",
                    help="torch device the pipeline runs on (default: cuda; "
                         "'cpu' for CPU tensors)")
@@ -67,6 +68,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="write synthetic hourly tickers to storage")
     p.add_argument("--symbols", type=int, default=None,
                    help="limit number of symbols processed")
+    p.add_argument("--method", default=None, choices=list(models.available()),
+                   help="smile/surface family for --task surface "
+                        "(default: config surface.smile_method; svi, essvi, "
+                        "sabr, rbf and ah are not ported yet)")
+    p.add_argument("--parity", action="store_true",
+                   help="float64 cubic-spline surface fits: the persisted "
+                        "(total_variance, total_variance_lo) pair matches "
+                        "SciPy's float64 spline to <=1e-8 (cubic_spline only)")
     p.add_argument("--env", choices=["development", "testing", "production"],
                    default=None, help="environment preset")
     p.add_argument("--storage", choices=["parquet", "memory", "postgres"],
@@ -100,15 +109,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "per-process")
     p.add_argument("--init-env", action="store_true",
                    help="write a .env template with the IVTPU_* knobs and exit")
+    p.add_argument("--serve-port", type=int, default=8787,
+                   help="TCP port for --task serve (0 = auto)")
+    p.add_argument("--serve-transport", choices=["jsonl", "flight"], default="jsonl",
+                   help="serving wire protocol: newline-delimited JSON or "
+                        "Arrow Flight (gRPC, columnar; needs pyarrow with Flight)")
     # the JAX CLI's flags that are not ported yet (see NOT_PORTED)
-    p.add_argument("--method", default=None, help=argparse.SUPPRESS)
-    for flag in ("--parity", "--monitor", "--with-monitor", "--visualize",
+    for flag in ("--monitor", "--with-monitor", "--visualize",
                  "--check-db", "--profile", "--validate-only", "--estimate"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--plot-dir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--plot-symbol", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--serve-port", type=int, default=None, help=argparse.SUPPRESS)
-    p.add_argument("--serve-transport", default=None, help=argparse.SUPPRESS)
     return p
 
 
@@ -153,8 +164,8 @@ def main(argv=None) -> int:
     for dest, item in NOT_PORTED.items():
         if getattr(args, dest) not in (None, False):
             return _refuse(f"--{dest.replace('_', '-')}", item)
-    if args.task in TASKS_NOT_PORTED:
-        return _refuse(f"--task {args.task}", TASKS_NOT_PORTED[args.task])
+    if args.method in models.base.NOT_PORTED:
+        return _refuse(f"--method {args.method}", models.base.NOT_PORTED[args.method])
 
     if args.init_env:
         root = args.data_root or "."
@@ -180,6 +191,8 @@ def main(argv=None) -> int:
         config.storage.backend = args.storage
     if args.data_root:
         config.storage.root = args.data_root
+    if args.parity:
+        config.surface.compensated = True
     if config.storage.backend == "postgres":
         return _refuse("storage backend 'postgres'", _PG)
     if args.shard:
@@ -237,6 +250,8 @@ def main(argv=None) -> int:
             return 0
         _emit(args, check_interpolation_results(runner.store), "task 1 audit")
         _emit(args, check_candle_results(runner.store), "task 2 audit")
+        from iv_interpolation_tpu_torch.pipeline.check_results import check_surface_results
+        _emit(args, check_surface_results(runner.store), "surface audit")
         return 0
 
     if args.generate_sample_candles or args.generate_sample_tickers:
@@ -308,6 +323,20 @@ def _dispatch(args, runner, limit):
             scope = sorted(s for s, r in m.records().items() if r.status == "completed")
         out["task2"] = runner.run_task2(symbols=scope)
         return out
+    if args.task == "surface":
+        from iv_interpolation_tpu_torch.pipeline.surface_task import run_surface_fit
+        return {"surface": run_surface_fit(runner.config, runner.store, limit=limit,
+                                           method=args.method, device=runner.device)}
+    if args.task == "serve":
+        if args.serve_transport == "flight":
+            from iv_interpolation_tpu_torch.pipeline.flight_service import run_serve_flight
+            serve = run_serve_flight
+        else:
+            from iv_interpolation_tpu_torch.pipeline.serve import run_serve
+            serve = run_serve
+        serve(runner.config, runner.store, port=args.serve_port,
+              n_underlyings=limit or 64, device=runner.device)
+        return {"serve": "stopped"}
     if args.task == "stream":
         from iv_interpolation_tpu_torch.pipeline.stream_service import run_stream_replay
         return {"stream": run_stream_replay(runner.config, n_underlyings=limit or 64,

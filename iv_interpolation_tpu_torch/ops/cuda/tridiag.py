@@ -101,7 +101,8 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     CPU tensors run :func:`tridiag_solve_plain`; CUDA tensors launch the
     Thomas kernel (float32 or float64) on the route :func:`thomas_plan`
     picks for n. ``tridiag_solve_cuda.launches`` counts kernel launches,
-    one a call.
+    one a call, and ``tridiag_solve_cuda.launches_by_dtype`` the same
+    launches by dtype name (``"float32"``, ``"float64"``).
     """
     _check(dl, d, du, b)
     if d.device.type == "cpu":
@@ -127,7 +128,9 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
                 *ptrs, cp.data_ptr(), n, batch, stream)
     check_launch(err, f"thomas ({plan.route})")
     tridiag_solve_cuda.launches += 1
+    tridiag_solve_cuda.launches_by_dtype[str(d.dtype)[6:]] += 1
     return x
 
 
 tridiag_solve_cuda.launches = 0
+tridiag_solve_cuda.launches_by_dtype = {"float32": 0, "float64": 0}

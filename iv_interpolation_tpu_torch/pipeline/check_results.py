@@ -1,6 +1,5 @@
-"""Post-hoc result verification of the three pipeline tables (port of
-``iv_interpolation_tpu/pipeline/check_results.py``; the surface audit
-waits for the surface task, ROADMAP).
+"""Post-hoc result verification of the pipeline and surface tables (port
+of ``iv_interpolation_tpu/pipeline/check_results.py``).
 
 Covers the reference's ``check_results.py`` audits:
   * Task 1: row counts, expansion ratio, top-N symbols by output rows
@@ -153,3 +152,34 @@ def quick_summary(store) -> dict:
     out["pipeline_complete"] = all(v["rows"] > 0 for k, v in out.items()
                                    if isinstance(v, dict))
     return out
+
+
+def check_surface_results(store) -> dict:
+    """Vol-surface audit (no reference analogue): per underlying arbitrage
+    flags, iv sanity ranges, grid coverage."""
+    from iv_interpolation_tpu_torch.pipeline.surface_task import SURFACES
+    surf = store.read(SURFACES)
+    if surf.empty:
+        return {"ok": False, "reason": "no fitted surfaces"}
+    aggs = dict(
+        rows=("iv", "size"),
+        butterfly_ok=("butterfly_ok", "first"),
+        calendar_ok=("calendar_ok", "first"),
+        iv_min=("iv", "min"), iv_max=("iv", "max"),
+        expiries=("expiry_t", "nunique"))
+    if "fit_rmse" in surf.columns:
+        aggs["fit_rmse"] = ("fit_rmse", "first")
+    per = surf.groupby("underlying").agg(**aggs)
+    sane_iv = bool(((per["iv_min"] > 0) & (per["iv_max"] < 5)).all())
+    report = {
+        "ok": sane_iv,
+        "surfaces": len(per),
+        "grid_rows": len(surf),
+        "butterfly_ok": int(per["butterfly_ok"].sum()),
+        "calendar_ok": int(per["calendar_ok"].sum()),
+        "iv_range": (float(per["iv_min"].min()), float(per["iv_max"].max())),
+        "per_underlying": per.to_dict("index"),
+    }
+    if "fit_rmse" in per.columns:
+        report["worst_fit_rmse"] = float(per["fit_rmse"].max())
+    return report

@@ -30,6 +30,17 @@ from dataclasses import asdict, dataclass, field
 from typing import Dict, List, Optional
 
 
+def free_batch_id(manifest_dir: str, tasks) -> int:
+    """An epoch-seconds batch id (reference convention, progress.py:18-20)
+    bumped until no ``{task}_{id}.jsonl`` of ``tasks`` exists: a run whose
+    stages all take this id is named by it in every stage."""
+    batch_id = int(time.time())
+    while any(os.path.exists(os.path.join(manifest_dir, f"{task}_{batch_id}.jsonl"))
+              for task in tasks):
+        batch_id += 1
+    return batch_id
+
+
 @dataclass
 class SymbolRecord:
     symbol: str
@@ -57,13 +68,9 @@ class RunManifest:
         self.flush_interval = max(1, flush_interval)
         os.makedirs(manifest_dir, exist_ok=True)
         if batch_id is None:
-            # epoch-seconds id (reference convention, progress.py:18-20);
             # two runs started within the same second must not share a
             # file, or the second would report the first's completions
-            batch_id = int(time.time())
-            while os.path.exists(os.path.join(
-                    manifest_dir, f"{task}_{batch_id}.jsonl")):
-                batch_id += 1
+            batch_id = free_batch_id(manifest_dir, (task,))
         self.batch_id = batch_id
         self.path = os.path.join(manifest_dir,
                                  f"{task}_{self.batch_id}.jsonl")

@@ -47,12 +47,14 @@ from iv_interpolation_tpu_torch.ops.bridge import BridgeParams, validate_bridge_
 from iv_interpolation_tpu_torch.ops.segment_ohlcv import validate_ohlcv
 from iv_interpolation_tpu_torch.pipeline import ingest, tasks
 from iv_interpolation_tpu_torch.pipeline import storage as st
-from iv_interpolation_tpu_torch.pipeline.manifest import RunManifest
+from iv_interpolation_tpu_torch.pipeline.manifest import RunManifest, free_batch_id
 from iv_interpolation_tpu_torch.utils import to_epoch_minutes
 
 _FREQ_MIN = {"1min": 1, "5min": 5, "15min": 15, "30min": 30, "1h": 60}
 _DTYPES = {"float32": np.float32, "float64": np.float64, "bfloat16": np.float32}
 QUALITY_REASON = "OHLCV quality gate failed"
+#: the manifest names of the three stages, in pipeline order
+STAGE_NAMES = ("interpolation", "bridge", "candles")
 _log = get_logger("pipeline")
 
 
@@ -453,15 +455,27 @@ class PipelineRunner:
                 f"shard_count={n} (want 0 <= index < count)")
         return [s for s in symbols if symbol_fold(s) % n == i]
 
-    def _manifest(self, name: str, resume_batch_id=None) -> RunManifest:
-        """Stage manifest; under --shard I/N the task name gains a
-        per-shard suffix, so each process writes its own jsonl."""
+    def _manifest_name(self, name: str) -> str:
+        """Under --shard I/N the task name gains a per-shard suffix, so
+        each process writes its own jsonl."""
         n = self.config.processing.shard_count
-        if n > 1:
-            name = f"{name}.shard{self.config.processing.shard_index}"
+        return f"{name}.shard{self.config.processing.shard_index}" if n > 1 else name
+
+    def _manifest(self, name: str, resume_batch_id=None,
+                  new_batch_id=None) -> RunManifest:
+        """Stage manifest: the one of ``resume_batch_id``, a new one under
+        ``new_batch_id`` (an id that ``_free_batch_id`` found free), else a
+        new one under a fresh id."""
         return RunManifest(
-            self.config.checkpoint.manifest_dir, name, resume_batch_id,
+            self.config.checkpoint.manifest_dir, self._manifest_name(name),
+            resume_batch_id if resume_batch_id is not None else new_batch_id,
             flush_interval=self.config.checkpoint.checkpoint_interval)
+
+    def _free_batch_id(self) -> int:
+        """One batch id free for all three stages: a run whose stages
+        share it is resumed by it in every stage."""
+        return free_batch_id(self.config.checkpoint.manifest_dir,
+                             [self._manifest_name(n) for n in STAGE_NAMES])
 
     def _symbol_chunks(self, symbols: List[str]):
         """The requested symbols in groups of ``read_chunk_symbols``, so
@@ -534,12 +548,13 @@ class PipelineRunner:
         return None, last
 
     def _open_stage(self, name: str, symbols, resume_batch_id, table: str,
-                    limit: Optional[int] = None):
+                    limit: Optional[int] = None, new_batch_id: Optional[int] = None):
         """A staged task's manifest and symbols: the pending symbols of a
         resumed batch, else ``symbols``, else every symbol of ``table``;
         cut to ``limit``, sharded, recorded pending and flushed (so
-        --resume can re-enqueue the run after an early crash)."""
-        manifest = self._manifest(name, resume_batch_id)
+        --resume can re-enqueue the run after an early crash). A new
+        manifest takes ``new_batch_id`` when ``run_all`` gives one."""
+        manifest = self._manifest(name, resume_batch_id, new_batch_id)
         if resume_batch_id is not None:
             symbols = manifest.pending_symbols()
             self.log.info("resume %s batch %s: %d pending symbols", name,
@@ -590,12 +605,13 @@ class PipelineRunner:
     def run_task1(self, symbols: Optional[List[str]] = None,
                   resume_batch_id: Optional[int] = None,
                   limit: Optional[int] = None,
-                  start_date=None, end_date=None) -> dict:
+                  start_date=None, end_date=None, *,
+                  _new_batch_id: Optional[int] = None) -> dict:
         """Interpolate hourly tickers to the minute grid with Greeks.
         ``start_date``/``end_date`` (any pandas-parseable timestamp)
         restrict the observation window."""
         manifest, symbols = self._open_stage("interpolation", symbols, resume_batch_id,
-                                             st.TICKERS, limit)
+                                             st.TICKERS, limit, _new_batch_id)
         if not symbols:
             return manifest.summary()
 
@@ -627,12 +643,13 @@ class PipelineRunner:
     # ------------------------------------------------------------------
     def run_bridge(self, symbols: Optional[List[str]] = None,
                    batch_id: Optional[int] = None,
-                   resume_batch_id: Optional[int] = None) -> dict:
+                   resume_batch_id: Optional[int] = None, *,
+                   _new_batch_id: Optional[int] = None) -> dict:
         """Synthesize 1-minute OHLCV from the interpolated table.
         ``batch_id`` converts only that task-1 batch's rows."""
         cfg = self.config.data_bridge
         manifest, symbols = self._open_stage("bridge", symbols, resume_batch_id,
-                                             st.INTERPOLATED)
+                                             st.INTERPOLATED, new_batch_id=_new_batch_id)
         if not symbols:
             return manifest.summary()
 
@@ -727,12 +744,13 @@ class PipelineRunner:
     # Task 2 — candle reconstruction
     # ------------------------------------------------------------------
     def run_task2(self, symbols: Optional[List[str]] = None,
-                  resume_batch_id: Optional[int] = None) -> dict:
+                  resume_batch_id: Optional[int] = None, *,
+                  _new_batch_id: Optional[int] = None) -> dict:
         """Aggregate the 1-minute candles to the target frequency; on the
         card each batch launches the aggregation kernel (B2) once."""
         cfg = self.config.candle_reconstruction
         manifest, symbols = self._open_stage("candles", symbols, resume_batch_id,
-                                             st.MINUTE_CANDLES)
+                                             st.MINUTE_CANDLES, new_batch_id=_new_batch_id)
         if not symbols:
             return manifest.summary()
 
@@ -886,8 +904,11 @@ class PipelineRunner:
         recorded completed only after its writes landed."""
         icfg = self.config.interpolation
         ccfg = self.config.candle_reconstruction
-        manifests = {name: self._manifest(name, resume_batch_id)
-                     for name in ("interpolation", "bridge", "candles")}
+        # a fresh run takes one id for its three manifests, so --resume
+        # names it in every stage
+        new_id = self._free_batch_id() if resume_batch_id is None else None
+        manifests = {name: self._manifest(name, resume_batch_id, new_id)
+                     for name in STAGE_NAMES}
         if resume_batch_id is not None:
             # a symbol is done only when all three stages completed it
             pending = set()
@@ -1060,16 +1081,18 @@ class PipelineRunner:
         completed, instead of every symbol in the shared tables.
         ``resume_batch_id`` resumes each stage whose manifest exists for
         that batch; a stage that never started runs fresh over the scoped
-        set."""
+        set, under the same id. A fresh run takes one id free for all
+        three stages, so that id names this run in every stage."""
         scoped = (symbols is not None or bool(limit)
                   or resume_batch_id is not None
                   or start_date is not None or end_date is not None)
+        run_id = self._free_batch_id() if resume_batch_id is None else resume_batch_id
 
-        def stage_resume(name):
-            if resume_batch_id is None:
-                return None
-            return (resume_batch_id
-                    if self._manifest(name, resume_batch_id).records() else None)
+        def stage_ids(name):
+            """(resume id, new id) of a downstream stage."""
+            if resume_batch_id is not None and self._manifest(name, resume_batch_id).records():
+                return resume_batch_id, None
+            return None, run_id
 
         def completed(name, batch_id):
             m = self._manifest(name, batch_id)
@@ -1079,11 +1102,14 @@ class PipelineRunner:
         # no-op (nothing pending), not a fresh full run
         s1 = self.run_task1(symbols=symbols, limit=limit,
                             resume_batch_id=resume_batch_id,
-                            start_date=start_date, end_date=end_date)
+                            start_date=start_date, end_date=end_date,
+                            _new_batch_id=run_id)
         scope = completed("interpolation", s1.get("batch_id")) if scoped else None
-        s2 = self.run_bridge(symbols=scope, resume_batch_id=stage_resume("bridge"))
+        resume, new = stage_ids("bridge")
+        s2 = self.run_bridge(symbols=scope, resume_batch_id=resume, _new_batch_id=new)
         scope2 = completed("bridge", s2.get("batch_id")) if scoped else None
-        s3 = self.run_task2(symbols=scope2, resume_batch_id=stage_resume("candles"))
+        resume, new = stage_ids("candles")
+        s3 = self.run_task2(symbols=scope2, resume_batch_id=resume, _new_batch_id=new)
         self.metrics.snapshot(f"pipeline_{s1.get('batch_id', 'run')}")
         return {"task1": s1, "bridge": s2, "task2": s3,
                 "step_metrics": self.metrics.summary()}

@@ -1,16 +1,16 @@
-"""Vol-surface fit and evaluation, cubic-spline path (port of
+"""Vol-surface fit and evaluation, spline paths (port of
 ``iv_interpolation_tpu/surface/surface.py``).
 
   1. per expiry, fit the smile in log-moneyness as total variance
      w(k) = iv^2 T with a cubic spline (knot curvatures from the Thomas
-     kernel);
+     kernel) or a smoothing spline (``ops.smoothing_spline``);
   2. evaluate each smile on a dense common k-grid;
   3. interpolate linearly in total variance across maturity at fixed k;
   4. report butterfly/calendar diagnostics on the evaluated grid.
 
-Everything is batched over surfaces (leading dim B). The other smile
-methods of the reference are not ported yet and raise
-``NotImplementedError`` naming their ROADMAP item.
+Everything is batched over surfaces (leading dim B). SVI, eSSVI and SABR
+are not ported yet and raise ``NotImplementedError`` naming their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -25,14 +25,15 @@ from iv_interpolation_tpu_torch.ops.cubic_spline import (
     eval_cubic_spline_second_deriv,
     fit_cubic_spline,
 )
+from iv_interpolation_tpu_torch.ops.smoothing_spline import fit_smoothing_spline
 from iv_interpolation_tpu_torch.surface.arbitrage import arbitrage_flags, butterfly_g
 
-_NOT_PORTED = {"smoothing_spline": "A5", "svi": "A5", "essvi": "A5",
-               "sabr": "A5"}
+_SPLINE_METHODS = ("cubic_spline", "smoothing_spline")
+_NOT_PORTED = {"svi": "A5", "essvi": "A5", "sabr": "A5"}
 
 
 def _check_method(method: str) -> None:
-    if method == "cubic_spline":
+    if method in _SPLINE_METHODS:
         return
     if method in _NOT_PORTED:
         raise NotImplementedError(
@@ -47,7 +48,8 @@ class SurfaceFit:
 
       k: (B, E, n) log-moneyness knots
       expiries: (B, E) maturities (years, ascending)
-      w: (B, E, n) total variance at the knots
+      w: (B, E, n) total variance at the knots (the smoothed values for
+        'smoothing_spline')
       coefs: (B, E, n) spline second derivatives
     """
 
@@ -60,19 +62,25 @@ class SurfaceFit:
 
 def fit_surface(k: torch.Tensor, iv: torch.Tensor, expiries: torch.Tensor,
                 method: str = "cubic_spline",
-                spline_bc: str = "natural") -> SurfaceFit:
+                spline_bc: str = "natural",
+                smoothing_lam: float = 0.0) -> SurfaceFit:
     """Fit a batch of vol surfaces.
 
     Args:
       k: (B, E, n) log-moneyness of quotes per expiry (ascending in n).
       iv: (B, E, n) implied vols.
       expiries: (B, E) maturities in years (ascending in E).
-      method: 'cubic_spline' (the only method ported so far).
-      spline_bc: 'natural' | 'not-a-knot' | 'clamped'; 'not-a-knot' keeps
-        the butterfly diagnostics free of the natural-BC edge artifact.
+      method: 'cubic_spline' or 'smoothing_spline'.
+      spline_bc: 'cubic_spline' boundary condition, 'natural' |
+        'not-a-knot' | 'clamped'; 'not-a-knot' keeps the butterfly
+        diagnostics free of the natural-BC edge artifact.
+      smoothing_lam: curvature penalty of 'smoothing_spline'.
     """
     _check_method(method)
     w = iv * iv * expiries[..., None]
+    if method == "smoothing_spline":
+        fit = fit_smoothing_spline(k, w, smoothing_lam)
+        return SurfaceFit(method=method, k=k, expiries=expiries, w=fit.g, coefs=fit.M)
     return SurfaceFit(method=method, k=k, expiries=expiries, w=w,
                       coefs=fit_cubic_spline(k, w, bc_type=spline_bc))
 
@@ -133,6 +141,7 @@ def eval_surface(fit: SurfaceFit, k_q: torch.Tensor,
 def fit_eval_surface(k: torch.Tensor, iv: torch.Tensor, expiries: torch.Tensor,
                      method: str = "cubic_spline", n_grid: int = 50,
                      spline_bc: str = "natural",
+                     smoothing_lam: float = 0.0,
                      quote_mask: torch.Tensor | None = None) -> dict:
     """Fit + dense-grid eval + arbitrage diagnostics.
 
@@ -140,9 +149,11 @@ def fit_eval_surface(k: torch.Tensor, iv: torch.Tensor, expiries: torch.Tensor,
     ``iv_grid`` (B, E, n_grid), the butterfly function ``g`` on the grid,
     per-surface ``butterfly_ok`` / ``calendar_ok`` flags, and ``fit_rmse``
     (B,): total-variance RMSE of the fitted smiles at the input quotes,
-    restricted to ``quote_mask`` (B, E, n) when given.
+    restricted to ``quote_mask`` (B, E, n) when given (0 up to rounding
+    for the interpolating cubic spline).
     """
-    fit = fit_surface(k, iv, expiries, method=method, spline_bc=spline_bc)
+    fit = fit_surface(k, iv, expiries, method=method, spline_bc=spline_bc,
+                      smoothing_lam=smoothing_lam)
     k_grid = common_support_grid(k, n_grid)
     knots = (fit.k, fit.w, fit.coefs)
     w_grid = eval_cubic_spline(*knots, k_grid)

@@ -121,3 +121,31 @@ def test_runner_and_cli_default_to_the_card(monkeypatch, tmp_path):
         cli.main(argv)
     assert PipelineRunner(get_config("testing"), MemoryStore(), device="cpu").device.type == "cpu"
     assert cli.main(argv + ["--device", "cpu"]) == 0
+
+
+def test_surface_and_serve_entry_points_default_to_the_card():
+    """``run_surface_fit``, ``build_session``, ``run_serve`` and
+    ``run_serve_flight`` target ``"cuda"`` unless told ``device="cpu"``;
+    without a card they raise instead of fitting on the CPU."""
+    import pandas as pd
+
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import flight_service, serve, surface_task
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+
+    for fn in (surface_task.run_surface_fit, serve.build_session, serve.run_serve,
+               flight_service.run_serve_flight):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__
+    if torch.cuda.is_available():
+        return
+    cfg = get_config("testing")
+    store = st.MemoryStore()
+    store.write(st.INTERPOLATED, pd.DataFrame({
+        "symbol": [f"btc-27mar23-{k}-c" for k in (20000, 22000, 24000, 26000)],
+        "date": pd.Timestamp("2023-03-20"), "iv": 0.5, "underlying_price": 23000.0,
+        "time_to_maturity": 0.25}))
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        surface_task.run_surface_fit(cfg, store)
+    with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+        serve.build_session(cfg, st.MemoryStore())
+    assert surface_task.run_surface_fit(cfg, store, device="cpu")["surfaces"] == 1

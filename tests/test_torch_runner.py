@@ -23,8 +23,10 @@ The port's staged and fused tables are exactly equal to each other.
 """
 
 import os
+import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pandas as pd
@@ -37,6 +39,7 @@ from iv_interpolation_tpu.pipeline import PipelineRunner as RefRunner
 from iv_interpolation_tpu.pipeline import runner as ref_runner
 from iv_interpolation_tpu_torch.config import get_config
 from iv_interpolation_tpu_torch.pipeline import ingest
+from iv_interpolation_tpu_torch.pipeline import manifest as port_manifest
 from iv_interpolation_tpu_torch.pipeline import runner as port_runner
 from iv_interpolation_tpu_torch.pipeline import storage as st
 from iv_interpolation_tpu_torch.pipeline.manifest import RunManifest
@@ -504,6 +507,39 @@ def test_run_all_scopes_downstream_stages(cfg):
     assert res2["bridge"]["by_status"] == {"completed": 1}
     status = runner.status()
     assert status[st.TICKERS]["symbols"] == 3 and status[st.RECONSTRUCTED]["rows"] > 0
+
+
+@pytest.mark.parametrize("taken", ["copied", "empty"])
+def test_run_all_takes_one_batch_id_free_for_every_stage(cfg, monkeypatch, taken):
+    """A fresh ``run_all`` runs its three stages under one id that no
+    stage's manifest holds yet, so ``resume_batch_id`` names the same run
+    in every stage whatever the clock does. The clock is held at 1000 s;
+    downstream manifests at 1001 stand in for a first run whose stages
+    crossed a second boundary (the id the limited run's task 1 would
+    have taken alone)."""
+    monkeypatch.setattr(port_manifest, "time", types.SimpleNamespace(time=lambda: 1000.0))
+    runner = _runner(cfg, generate_sample_tickers(num_symbols=3, hours=6))
+    first = runner.run_all()
+    assert {first[k]["batch_id"] for k in STAGES} == {1000}
+    d = cfg.checkpoint.manifest_dir
+    for name in ("bridge", "candles"):
+        dst = os.path.join(d, f"{name}_1001.jsonl")
+        if taken == "copied":
+            shutil.copy(os.path.join(d, f"{name}_1000.jsonl"), dst)
+        else:
+            open(dst, "w").close()
+    res = runner.run_all(limit=1)
+    assert {res[k]["batch_id"] for k in STAGES} == {1002}
+    m = RunManifest(d, "interpolation", 1002)
+    m.error_symbol(sorted(m.records())[0], "simulated crash")
+    m.flush()
+    res2 = runner.run_all(resume_batch_id=1002)
+    for key in STAGES:
+        assert res2[key]["batch_id"] == 1002
+        assert res2[key]["by_status"] == {"completed": 1}, key
+    # the fused path opens its three manifests under one free id too
+    fused = runner.run_pipeline_fused(limit=1)
+    assert {fused[k]["batch_id"] for k in STAGES} == {1003}
 
 
 def test_date_window_batch_filter_and_duplicates(cfg):

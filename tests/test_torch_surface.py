@@ -1,6 +1,6 @@
-"""Port parity: surface fit/eval (cubic-spline path) and the arbitrage
-diagnostics against the JAX package's ``surface/surface.py`` and
-``surface/arbitrage.py``.
+"""Port parity: surface fit/eval (cubic and smoothing spline paths) and
+the arbitrage diagnostics against the JAX package's ``surface/surface.py``
+and ``surface/arbitrage.py``.
 
 Tolerances: float64 values agree to 1e-12 (Thomas against PCR in the
 curvature solve, otherwise the same arithmetic); the float32 run agrees
@@ -123,11 +123,33 @@ def test_eval_surface_matches_jax_on_converted_fit(rng, E):
 
 def test_unported_methods_name_their_roadmap_item(rng):
     k, iv, T = map(torch.from_numpy, _chains(rng))
-    for method in ("svi", "essvi", "sabr", "smoothing_spline"):
+    for method in ("svi", "essvi", "sabr"):
         with pytest.raises(NotImplementedError, match="ROADMAP A5"):
             port.fit_eval_surface(k, iv, T, method=method)
     with pytest.raises(ValueError):
         port.fit_surface(k, iv, T, method="linear")
+    # the smoothing spline is ported (test_smoothing_spline_surface_matches_jax)
+    assert port.fit_eval_surface(k, iv, T, method="smoothing_spline")["w_grid"].shape[-1] == 50
+
+
+@pytest.mark.parametrize("lam", [0.0, 1e-3])
+def test_smoothing_spline_surface_matches_jax(rng, lam):
+    """fit_eval_surface and eval_surface with method='smoothing_spline'
+    against the JAX package's, float64."""
+    k, iv, T = _chains(rng, wiggle=0.02)
+    got = port.fit_eval_surface(*map(torch.from_numpy, (k, iv, T)), method="smoothing_spline",
+                                n_grid=30, smoothing_lam=lam)
+    want = ref.fit_eval_surface(*map(jnp.asarray, (k, iv, T)), method="smoothing_spline",
+                                n_grid=30, smoothing_lam=lam)
+    for key in ("w_grid", "iv_grid", "g", "fit_rmse"):
+        _close(got[key].numpy(), np.asarray(want[key]), np.float64)
+    for key in ("butterfly_ok", "calendar_ok"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    B = k.shape[0]
+    k_q, T_q = rng.uniform(-0.5, 0.5, (B, 7)), rng.uniform(0.0, 2.5, (B, 7))
+    _close(port.eval_surface(got["fit"], torch.from_numpy(k_q), torch.from_numpy(T_q)).numpy(),
+           np.asarray(ref.eval_surface(want["fit"], jnp.asarray(k_q), jnp.asarray(T_q))),
+           np.float64)
 
 
 def test_arbitrage_functions_match_jax(rng):
