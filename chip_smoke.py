@@ -13,7 +13,9 @@ Phases:
      every shape the main paths give it and at the edges of its launch
      plan (B1: n=1 and 2, float64, the global-scratch route; B2: int64
      minutes beyond int32, shuffled rows, NaN/Inf payloads, negative
-     minutes, scalar loads, the tile loop); at each main-path shape the
+     minutes, scalar loads, the tile loop; B2 once more with float64
+     values, every case and the three timed shapes); at each main-path
+     shape the
      device time of the wrapper and of the plain call (each replayed from
      a CUDA graph), the bound (bytes or operations this call's inputs need
      over the card's peak rates), the share of it, and the library call
@@ -43,8 +45,10 @@ Phases:
      the first batch's symbols against a CPU run; the dispatch orders
      (2 batches in flight against 1) in turns; at 512 symbols x 2 days a
      stopped-and-resumed run and a staged ``run_all`` against the fused
-     tables and a cubic run (B1 once a sub-batch); the CLI in a
-     subprocess;
+     tables and a cubic run (B1 once a sub-batch); a float64 run
+     (``processing.dtype="float64"``, 256 symbols in 4 batches: B2 float64
+     once a batch, no symbol in error, held to the same run on CPU
+     tensors); the CLI in a subprocess;
   7. the surface task: an ``interpolated`` table of 256 underlyings (192
      of 12 expiries x 32 strikes, 64 of 6 x 16, call and put, two
      snapshots a symbol, about 2 % of the latest rows marked by price
@@ -54,14 +58,29 @@ Phases:
      share, peak memory, B1 launches by dtype, no plain version called;
      each run against the same run on CPU tensors, parity mode against
      SciPy's float64 spline on 32 surfaces, the surface audit, and the
-     CLI (``--task surface`` exits 0, ``--method svi`` exits 2);
+     CLI (``--task surface`` exits 0, so does ``--method svi``, and
+     ``--method rbf`` exits 2);
   8. serving: ``run_serve`` over phase 7's store (its 256 underlyings'
      chains), a client's ticks, flush, 7 refits (median reply latency),
      stats and stop; the refits against a CPU session fed the same ticks,
-     B2 twice a refit; the same over Arrow Flight where it imports.
+     B2 twice a refit; the same over Arrow Flight where it imports;
+  9. the calibrated families at 1,024 surfaces x 30 expiries x 50 quotes,
+     float32, noise 1e-4: (a) ``fit_svi_batched`` on the 30,720 slices
+     (quasi init, 32 iterations; again with the butterfly hinge and with
+     the Huber loss), (b) ``fit_essvi_batched`` with the block solver, and
+     the dense solver on 256 surfaces, (c) ``fit_sabr_batched`` on 30,720
+     slices, (d) ``fit_eval_surface`` for the three methods, (e)
+     ``greek_surfaces`` on (d)'s grids; each held to the same call on CPU
+     tensors at 64 surfaces and to the generating smile, and timed (ms a
+     fit, ms an LM iteration, slices/s or surfaces/s, peak memory, device
+     launches a fit from ``torch.profiler``); (f) phase 7's store through
+     ``run_surface_fit`` with svi, essvi and sabr.
 
-B1 is listed twice in the kernel line, float32 and float64, each with its
-launches on every path.
+``--phases 2,9`` (development only) runs the named phases after the
+build and prints no result line.
+
+B1 and B2 are each listed twice in the kernel line, float32 and float64,
+each with its launches on every path.
 
 Prints a JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -150,6 +169,14 @@ SURFACE_TASK = dict(big=(192, 12, 32), small=(64, 6, 16), nan_frac=0.02, seed=17
 # phase 8, serving phase 7's store: 64 ticks per underlying over a
 # 512-minute window, then 7 refits
 SERVE = dict(ticks=64, window=512, refits=7, seed=18)
+# phase 6's float64 run: 256 symbols x 2 days in 4 batches of 64
+RUNNER_F64 = dict(symbols=256, hours=48, batch=64, seed=20)
+# phase 9, the calibrated families: 1,024 surfaces x 30 expiries x 50
+# quotes on k = linspace(-1.2, 1.2, 50), float32, noise 1e-4, 32 LM
+# iterations; 64 surfaces also on CPU tensors (16 for the dense solver,
+# which runs on 256 surfaces on the card)
+CALIB = dict(B=1024, E=30, N=50, M=50, iters=32, noise=1e-4, cpu=64, dense_B=256,
+             dense_cpu=16, seed=19)
 # calls a CUDA graph when a kernel is timed: back to back, as a stream of
 # launches runs them (one a graph adds a graph launch to every call)
 CALLS = 10
@@ -375,21 +402,32 @@ def bucket_sums(minutes, v, valid, bm, base, ns):
     return out(v64), out(v64.abs())
 
 
+def eps_of(t: torch.Tensor) -> float:
+    return EPS32 if t.dtype == torch.float32 else EPS64
+
+
 def compare_candles(got, ref, inputs, bm, base, ns, what) -> float:
-    """Exact open/high/low/close/count/valid; volume within the float32
-    sum bound. Both sums run in unordered atomics, and any float32 sum of
-    a bucket's values lies within (count - 1) eps32 sum|v| of the exact
-    sum; the two differ by at most twice that plus an ulp of rounding."""
+    """Exact open/high/low/close/count/valid; volume within the sum bound
+    of the values' dtype (eps = eps32 or eps64). Both sums run in unordered
+    atomics, and any sum of a bucket's values in that dtype lies within
+    (count - 1) eps sum|v| of the exact sum; the two differ by at most
+    twice that plus an ulp of rounding. The float64 oracle is exact beside
+    float32 values; beside float64 values it is one more such sum, so the
+    kernel is held to it within twice the bound."""
     for f in ("open", "high", "low", "close", "count", "valid"):
         check(same_with_nan(getattr(got, f), getattr(ref, f)), f"B2 {what}: {f} exact")
+    check(all(getattr(got, f).dtype == inputs[5].dtype
+              for f in ("open", "high", "low", "close", "volume")),
+          f"B2 {what}: outputs in the values' dtype")
+    eps, wide = eps_of(inputs[5]), inputs[5].dtype == torch.float64
     vol64, mag = bucket_sums(inputs[0], inputs[5], inputs[6], bm, base, ns)
     cnt = (got.count.double() - 1).clamp_min(0)
     err = (got.volume.double() - ref.volume.double()).abs()
-    check(bool((err <= 2 * cnt * EPS32 * mag + EPS32 * vol64.abs()).all()),
-          f"B2 {what}: volume within the float32 sum bound of the plain version")
+    check(bool((err <= 2 * cnt * eps * mag + eps * vol64.abs()).all()),
+          f"B2 {what}: volume within the sum bound of the plain version")
     check(bool(((got.volume.double() - vol64).abs()
-                <= cnt * EPS32 * mag + EPS32 * vol64.abs()).all()),
-          f"B2 {what}: volume within the float32 sum bound of the float64 sum")
+                <= (2 if wide else 1) * cnt * eps * mag + eps * vol64.abs()).all()),
+          f"B2 {what}: volume within the sum bound of the float64 sum")
     return float(err.max())
 
 
@@ -397,14 +435,16 @@ def b2_bytes(ticks, got) -> int:
     """Bytes a B2 call must move with these inputs: valid once; the
     minutes of the valid rows; h, l and v of the rows that land in a
     bucket (each distinct tensor once); o and c once per nonempty bucket;
-    25 bytes a bucket out (five float32, an int32 count, a bool)."""
+    five values, an int32 count and a bool a bucket out (25 bytes in
+    float32, 45 in float64)."""
     minutes, o, h, l, c, v, valid = ticks
     distinct = lambda *ts: len({t.data_ptr() for t in ts})
     counted = int(got.count.sum())
     nonempty = int((got.count > 0).sum())
+    size = v.element_size()
     return (valid.numel() + int(valid.sum()) * minutes.element_size()
-            + counted * 4 * distinct(h, l, v) + nonempty * 4 * distinct(o, c)
-            + got.count.numel() * 25)
+            + counted * size * distinct(h, l, v) + nonempty * size * distinct(o, c)
+            + got.count.numel() * (5 * size + 5))
 
 
 def b2_case(agg, ticks, kw, what, timed=False):
@@ -417,21 +457,21 @@ def b2_case(agg, ticks, kw, what, timed=False):
                           kw["num_segments"], what)
     if not timed:
         return got, ref, err, None
-    plan = agg.agg_plan(ticks[0].shape[1], kw["num_segments"])
+    plan = agg.agg_plan(ticks[0].shape[1], kw["num_segments"], ticks[1].dtype)
     kernel = lambda: agg.aggregate_ohlcv_cuda(*ticks, **kw)
     ms = device_ms(kernel, 20, CALLS)
     plain = device_ms(lambda: agg.aggregate_ohlcv_plain(*ticks, **kw), 5, CALLS)
     row = timing_row(f"B2 {what}", ms, plain, b2_bytes(ticks, got), 0, None,
                      ms_one_call_a_graph=device_ms(kernel, 20),
                      tiles=plan.tiles, threads=plan.threads, smem=plan.smem,
-                     minutes=str(ticks[0].dtype)[6:])
+                     minutes=str(ticks[0].dtype)[6:], values=str(ticks[1].dtype)[6:])
     return got, ref, err, row
 
 
-def candle_ticks(gen):
+def candle_ticks(gen, dtype=torch.float32):
     """Candle-stage-shaped ticks: each row's 1-min grid from an epoch
     minute on, the first ``filled`` slots valid (the pipeline's timeline),
-    int64 minutes as the stage passes them."""
+    int64 minutes as the stage passes them, values in ``dtype``."""
     P = B2_CANDLE
     B, L = P["B"], P["L"]
     start = int(np.datetime64("2023-03-20T09:00", "m").astype(np.int64))
@@ -440,16 +480,20 @@ def candle_ticks(gen):
     spread = torch.rand((B, L), generator=gen, device=DEV) * 10
     valid = (torch.arange(L, device=DEV) < P["filled"]).expand(B, L).contiguous()
     vol = torch.rand((B, L), generator=gen, device=DEV) * 50
-    return [minutes, mid, mid + spread, mid - spread, mid + 0.5 * spread, vol, valid], start
+    values = [a.to(dtype) for a in (mid, mid + spread, mid - spread, mid + 0.5 * spread, vol)]
+    return [minutes, *values, valid], start
 
 
-def stream_agg_cases(agg) -> dict:
+def stream_agg_cases(agg, dtype=torch.float32) -> dict:
+    """B2 with values in ``dtype`` against its plain version: the three
+    main-path shapes (timed) and the edges of its launch plan."""
     gen = torch.Generator(device=DEV).manual_seed(12)
+    eps = EPS32 if dtype == torch.float32 else EPS64
     B, L, ns1 = B2_SHAPE
     minutes = torch.sort(torch.randint(0, ns1, (B, L), generator=gen, device=DEV,
                                        dtype=torch.int32), dim=-1).values
-    price = 100 + torch.randn((B, L), generator=gen, device=DEV).cumsum(-1) * 0.01
-    size = torch.rand((B, L), generator=gen, device=DEV) * 5
+    price = (100 + torch.randn((B, L), generator=gen, device=DEV).cumsum(-1) * 0.01).to(dtype)
+    size = (torch.rand((B, L), generator=gen, device=DEV) * 5).to(dtype)
     valid = torch.rand((B, L), generator=gen, device=DEV) < 0.9
     ticks = [minutes, price, price, price, price, size, valid]
     s1 = dict(bucket_minutes=1, num_segments=ns1, min_count=1)
@@ -458,7 +502,7 @@ def stream_agg_cases(agg) -> dict:
     # the pipeline's candle stage: epoch-scale int64 minutes shifted into
     # range by base_bucket; then the same minutes moved past int32 (the
     # 64-bit division), with base_bucket moved by as many buckets
-    candles, start = candle_ticks(gen)
+    candles, start = candle_ticks(gen, dtype)
     P = B2_CANDLE
     sc = dict(bucket_minutes=5, base_bucket=start // 5, num_segments=P["buckets"],
               min_count=5)
@@ -496,7 +540,8 @@ def stream_agg_cases(agg) -> dict:
     vol64, mag = bucket_sums(ticks[0], ticks[5], ticks[6], 1, 0, ns1)
     cnt = (cs.count.double() - 1).clamp_min(0)
     check(bool(((cs.volume.double() - vol64).abs()
-                <= cnt * EPS32 * mag + EPS32 * vol64.abs()).all()), "B2 shuffled: volume")
+                <= (1 if dtype == torch.float32 else 2) * cnt * eps * mag
+                + eps * vol64.abs()).all()), "B2 shuffled: volume")
 
     # NaN / Inf payloads in invalid rows never reach a result
     bad = [a.clone() for a in ticks]
@@ -521,19 +566,21 @@ def stream_agg_cases(agg) -> dict:
     odd = [a[:, :L - 3].contiguous() for a in ticks]
     worst = max(worst, b2_case(agg, odd, s1, f"{B}x{L - 3} (scalar loads)")[2])
     wide_ns, wide_shape = agg.MAX_TILE * 2 + 3616, (64, 16384)
+    wide_tiles = 3 if dtype == torch.float32 else 4    # tiles of 8,192 or of 6,144
     wide_min = torch.sort(torch.randint(0, wide_ns, wide_shape, generator=gen, device=DEV,
                                         dtype=torch.int32), dim=-1).values
-    wide_p = 100 + torch.randn(wide_shape, generator=gen, device=DEV).cumsum(-1) * 0.01
+    wide_p = (100 + torch.randn(wide_shape, generator=gen, device=DEV).cumsum(-1) * 0.01
+              ).to(dtype)
     wide = [wide_min, wide_p, wide_p, wide_p, wide_p,
-            torch.rand(wide_shape, generator=gen, device=DEV) * 5,
+            (torch.rand(wide_shape, generator=gen, device=DEV) * 5).to(dtype),
             torch.rand(wide_shape, generator=gen, device=DEV) < 0.9]
-    plan = agg.agg_plan(wide_shape[1], wide_ns)
-    check(plan.tiles == 3, f"the wide case takes the tile loop: {plan}")
+    plan = agg.agg_plan(wide_shape[1], wide_ns, dtype)
+    check(plan.tiles == wide_tiles, f"the wide case takes the tile loop: {plan}")
     worst = max(worst, b2_case(agg, wide, dict(s1, num_segments=wide_ns),
                                f"tile loop {wide_shape[0]}x{wide_shape[1]}->{wide_ns} "
                                f"({plan.tiles} tiles)")[2])
-    log(f"  B2 max|volume kernel-plain| = {worst:.3e}; beyond-int32, shuffled, NaN/Inf, "
-        f"negative-minute, scalar-load and tile-loop cases pass")
+    log(f"  B2 {str(dtype)[6:]} max|volume kernel-plain| = {worst:.3e}; beyond-int32, "
+        f"shuffled, NaN/Inf, negative-minute, scalar-load and tile-loop cases pass")
     return {"max_abs_err": worst, **rows[0], "shapes": rows}
 
 
@@ -991,11 +1038,21 @@ def pipeline_checks(main, runner, tasks, agg) -> dict:
     for f in ("open", "high", "low", "close", "count", "valid"):
         check(same_with_nan(getattr(via_tasks, f), getattr(ref, f)),
               f"candles_batch's per-row base shift: {f} exact")
+    # the same stage in float64 launches the float64 kernel (selections
+    # are the float32 values widened: exact); mixed value dtypes raise
+    wide = [ticks[0], *(a.double() for a in ticks[1:6]), ticks[6]]
+    got64 = agg.aggregate_ohlcv_cuda(*wide, **kw)
+    for f in ("open", "high", "low", "close"):
+        check(same_with_nan(getattr(got64, f), getattr(ref, f).double()),
+              f"candle stage in float64: {f} is the float32 selection")
+    compare_candles(got64, agg.aggregate_ohlcv_plain(*wide, **kw), wide, 5, 0, ns,
+                    "candle stage in float64")
     try:
-        agg.aggregate_ohlcv_cuda(ticks[0], *(a.double() for a in ticks[1:6]), ticks[6], **kw)
-        check(False, "a float64 CUDA batch raises")
+        agg.aggregate_ohlcv_cuda(ticks[0], ticks[1].double(), *ticks[2:], **kw)
+        check(False, "mixed value dtypes on a CUDA batch raise")
     except TypeError:
         pass
+    del wide, got64
     # the stage as the pipeline calls it (int64 minutes, the per-row
     # shift, the kernel) captured in a CUDA graph: the wrapper reads
     # nothing back from the device
@@ -1282,10 +1339,11 @@ def host_runner(reset_counts, read_counts) -> dict:
         shutil.rmtree(work / f"order{i}", ignore_errors=True)
     shutil.rmtree(work / "main", ignore_errors=True)
     small = runner_small_scale(work, reset_counts, read_counts)
+    f64 = runner_float64(work, reset_counts)
     runner_cli(root, work)
     shutil.rmtree(work, ignore_errors=True)
     return {"launches": {k: main["counts"][k] + small[k] for k in main["counts"]},
-            "rows_per_s": main["rate"], "store": kind,
+            "b2_f64_launches": f64, "rows_per_s": main["rate"], "store": kind,
             "order_s": {d: [round(r["wall"], 3) for r in runs] for d, runs in order.items()}}
 
 
@@ -1358,6 +1416,75 @@ def runner_small_scale(work, reset_counts, read_counts) -> dict:
         f"last bit: {resume_differ} and {staged_differ}; cubic: {n_sub} sub-batches, "
         f"launches {cubic_counts}")
     return {k: staged_counts[k] + cubic_counts[k] for k in staged_counts}
+
+
+def runner_float64(work, reset_counts) -> int:
+    """Phase 6 (f): ``processing.dtype="float64"`` through
+    ``run_pipeline_fused`` on the card, RUNNER_F64's 256 symbols x 2 days
+    in 4 batches: every symbol completed or skipped (none in error), the
+    tables' rows equal to the manifests', B2 launched once a batch in
+    float64 and never in float32; against the same run on CPU tensors:
+    the same statuses, keys and row counts, and every numeric column
+    within 1e-9 of max(1, |x|) in all but at most 0.1 % of its rows (a
+    value that sits on a rounding step of the bridge may land on either
+    side between the two devices' exp and log). Returns the B2 float64
+    launches."""
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.ops.cuda.stream_agg import aggregate_ohlcv_cuda
+    from iv_interpolation_tpu_torch.pipeline import runner as runner_mod
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline.sample_data import generate_sample_tickers
+
+    P = RUNNER_F64
+    tickers = generate_sample_tickers(num_symbols=P["symbols"], hours=P["hours"],
+                                      seed=P["seed"], drop_frac=RUNNER["drop_frac"])
+    runs = {}
+    for device in (DEV, "cpu"):
+        store = st.MemoryStore()
+        store.write(st.TICKERS, tickers)
+        cfg = runner_config(get_config, work / f"f64_{device}", P["batch"])
+        cfg.processing.dtype = "float64"
+        if device == DEV:
+            reset_counts()
+        t = time.perf_counter()
+        res = runner_mod.PipelineRunner(cfg, store, device=device).run_pipeline_fused()
+        runs[device] = (store, res, time.perf_counter() - t)
+    by_dtype = dict(aggregate_ohlcv_cuda.launches_by_dtype)
+    store, res, wall = runs[DEV]
+    n_batches = P["symbols"] // P["batch"]
+    for k, table in (("task1", st.INTERPOLATED), ("bridge", st.MINUTE_CANDLES),
+                     ("task2", st.RECONSTRUCTED)):
+        by = res[k]["by_status"]
+        check(set(by) <= {"completed", "skipped"} and sum(by.values()) == P["symbols"]
+              and by.get("completed", 0) > 0,
+              f"(f) float64 {k}: every symbol completed or skipped, none in error: {by}")
+        check(by == runs["cpu"][1][k]["by_status"], f"(f) float64 {k}: statuses as on CPU tensors")
+        check(store.count(table) == res[k]["output_rows"] > 0,
+              f"(f) float64 {table}: {store.count(table)} rows = the manifest's")
+    check(by_dtype == {"float32": 0, "float64": n_batches},
+          f"(f) B2 float64 once a batch ({n_batches}), never float32: {by_dtype}")
+    worst = 0.0
+    for table in TABLE_KEYS:
+        a, b = read_table(store, table), read_table(runs["cpu"][0], table)
+        check(len(a) == len(b) and list(a.columns) == list(b.columns),
+              f"(f) float64 {table}: {len(a)} rows on the card, {len(b)} on CPU tensors")
+        for c in a.columns:
+            x, y = a[c].to_numpy(), b[c].to_numpy()
+            if x.dtype.kind != "f":
+                check(bool((x == y).all()), f"(f) float64 {table}.{c} equal")
+                continue
+            check(np.array_equal(np.isnan(x), np.isnan(y)), f"(f) float64 {table}.{c} NaN mask")
+            d = np.nan_to_num(np.abs(x - y)) / np.maximum(1.0, np.abs(np.nan_to_num(y)))
+            off = float((d > 1e-9).mean())
+            check(off <= 1e-3, f"(f) float64 {table}.{c}: {off:.2%} of rows beyond 1e-9")
+            worst = max(worst, float(np.median(d)))
+        if table == "interpolated_trading_tickers":
+            check(a["iv"].dtype == np.float64, "(f) the float64 run persists float64")
+    log(f"  (f) float64 pipeline, {P['symbols']} symbols x {P['hours']} h in {n_batches} "
+        f"batches: {wall:.2f} s on the card, {runs['cpu'][2]:.2f} s on CPU tensors; "
+        f"statuses {res['task2']['by_status']}; B2 launches {by_dtype}; tables equal to CPU "
+        f"tensors' within 1e-9 (worst column median {worst:.2e})")
+    return by_dtype["float64"]
 
 
 def runner_cli(root, work) -> None:
@@ -1657,6 +1784,21 @@ def parity_oracle(task, chains, table, rng) -> float:
     return worst
 
 
+def surface_work() -> Path:
+    return Path(__file__).resolve().parent / "build" / "chip_smoke_surface"
+
+
+def surface_store(rng):
+    """SURFACE_TASK's ``interpolated`` table in a store under
+    ``surface_work()`` (parquet when pyarrow imports): the store, the
+    frame and the latest rows' truth."""
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    frame, truth = make_surface_table(rng)
+    store = make_store(st, surface_work() / "data")
+    store.write(st.INTERPOLATED, frame, upsert_keys=["symbol", "date"])
+    return store, frame, truth
+
+
 def surface_task_phase(reset_counts, read_counts, tridiag, agg) -> dict:
     """Phase 7: ``run_surface_fit`` from a parquet store on the card, on
     SURFACE_TASK's 256 underlyings, once for each of SURFACE_RUNS: (a)
@@ -1673,12 +1815,10 @@ def surface_task_phase(reset_counts, read_counts, tridiag, agg) -> dict:
 
     P = SURFACE_TASK
     root = Path(__file__).resolve().parent
-    work = root / "build" / "chip_smoke_surface"
+    work = surface_work()
     rng = np.random.default_rng(P["seed"])
     t0 = time.perf_counter()
-    frame, truth = make_surface_table(rng)
-    store = make_store(st, work / "data")
-    store.write(st.INTERPOLATED, frame, upsert_keys=["symbol", "date"])
+    store, frame, truth = surface_store(rng)
     cpu_store = st.MemoryStore()
     cpu_store.write(st.INTERPOLATED, frame)
     n_nan = int(frame["iv"].isna().sum())
@@ -1764,7 +1904,8 @@ def surface_task_phase(reset_counts, read_counts, tridiag, agg) -> dict:
 
 def surface_cli(root, work) -> None:
     """(f): ``iv-tpu-torch --task surface --json`` on the phase's store
-    exits 0 on the card, ``--method svi`` exits 2 naming A5."""
+    exits 0 on the card, so does ``--method svi``, and ``--method rbf``
+    exits 2 naming A6."""
     cli_dir = work / "cli"
     cli_dir.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
@@ -1779,10 +1920,16 @@ def surface_cli(root, work) -> None:
     check(out["surface"]["surfaces"] == 256, f"(f) the CLI fitted 256 surfaces: {out['surface']}")
     svi = subprocess.run(base + ["--method", "svi"], cwd=cli_dir, env=env, capture_output=True,
                          text=True, timeout=300)
-    check(svi.returncode == 2 and "ROADMAP: A5" in svi.stderr,
-          f"(f) --method svi exits 2 naming A5: {svi.returncode} {svi.stderr[-500:]}")
-    log(f"  (f) {' '.join(base[1:])}: exit 0, {out['surface']}; --method svi: exit 2 "
-        f"({svi.stderr.strip()})")
+    check(svi.returncode == 0, f"(f) --method svi exits 0: {svi.stderr[-2000:]}")
+    svi_out = json.loads(svi.stdout.strip().splitlines()[-1])["surface"]
+    check(svi_out["surfaces"] == 256 and svi_out["method"] == "svi",
+          f"(f) --method svi fitted 256 surfaces: {svi_out}")
+    rbf = subprocess.run(base + ["--method", "rbf"], cwd=cli_dir, env=env, capture_output=True,
+                         text=True, timeout=300)
+    check(rbf.returncode == 2 and "ROADMAP: A6" in rbf.stderr,
+          f"(f) --method rbf exits 2 naming A6: {rbf.returncode} {rbf.stderr[-500:]}")
+    log(f"  (f) {' '.join(base[1:])}: exit 0, {out['surface']}; --method svi: exit 0, "
+        f"{svi_out}; --method rbf: exit 2 ({rbf.stderr.strip()})")
 
 
 # -- phase 8: serving ----------------------------------------------------------
@@ -1913,7 +2060,339 @@ def serving_phase(store, reset_counts, read_counts) -> dict:
     return out
 
 
-def main() -> int:
+# -- phase 9: the calibrated families -----------------------------------------
+
+CALIB_RUNS = (("svi", {}), ("essvi", {}), ("sabr", {}))
+
+
+def calib_data(P):
+    """Phase 9's quotes from a numpy generator: k (B, E, n) on
+    linspace(-1.2, 1.2, n), T (B, E) on linspace(0.05, 2, E), and per
+    family the generating smile plus noise: raw-SVI slices, eSSVI surfaces
+    (theta a running sum, rho and the psi fraction one a surface), SABR
+    slices (beta 0.5, F = 1, K = e^k; the noise on the vols). All float32;
+    ``clean`` holds the noiseless total variance of each."""
+    from iv_interpolation_tpu_torch.ops import essvi, sabr, svi
+
+    B, E, n = P["B"], P["E"], P["N"]
+    rng = np.random.default_rng(P["seed"])
+    U = lambda lo, hi, shape: torch.from_numpy(rng.uniform(lo, hi, shape))
+    noise = lambda: torch.from_numpy(P["noise"] * rng.normal(size=(B, E, n)))
+    k = torch.linspace(-1.2, 1.2, n, dtype=torch.float64).expand(B, E, n)
+    T = torch.linspace(0.05, 2.0, E, dtype=torch.float64).expand(B, E)
+    p_svi = torch.cat([U(0.01, 0.08, (B, E, 1)), U(0.05, 0.3, (B, E, 1)),
+                       U(-0.6, 0.6, (B, E, 1)), U(-0.2, 0.2, (B, E, 1)),
+                       U(0.1, 0.5, (B, E, 1))], dim=-1)
+    theta = U(0.005, 0.03, (B, E)).cumsum(-1)
+    rho = U(-0.6, 0.6, (B, 1)).expand(B, E)
+    psi = essvi.psi_butterfly_cap(theta, rho) * U(0.2, 0.7, (B, 1))
+    p_sabr = torch.cat([U(0.15, 0.5, (B, E, 1)), torch.full((B, E, 1), 0.5, dtype=torch.float64),
+                        U(-0.5, 0.2, (B, E, 1)), U(0.2, 0.8, (B, E, 1))], dim=-1)
+    clean = {"svi": svi.svi_total_variance(p_svi, k),
+             "essvi": essvi.essvi_w(torch.stack([theta, rho, psi], dim=-1), k)}
+    iv_sabr = sabr.sabr_vol(p_sabr, torch.ones_like(T), torch.exp(k), T)
+    clean["sabr"] = iv_sabr * iv_sabr * T[..., None]
+    w = {"svi": clean["svi"] + noise(), "essvi": clean["essvi"] + noise()}
+    iv = {m: torch.sqrt(w[m] / T[..., None]) for m in w}
+    iv["sabr"] = iv_sabr + noise()
+    w["sabr"] = iv["sabr"] ** 2 * T[..., None]
+    f32 = lambda d: {m: a.float().contiguous() for m, a in d.items()}
+    return dict(k=k.float().contiguous(), T=T.float().contiguous(), w=f32(w), iv=f32(iv),
+                clean=f32(clean))
+
+
+def timed_fit(fit, iters: int, reps: int = 2) -> dict:
+    """``fit(max_iters)`` on the card: device ms of a fit of ``iters``
+    iterations (CUDA events after a warm-up call), ms an LM iteration from
+    the difference to a fit of a quarter as many, host seconds of one
+    synchronised call, and the peak memory of a fit."""
+    short = max(iters // 4, 1)
+    ms = cuda_ms(lambda: fit(iters), reps)
+    ms_short = cuda_ms(lambda: fit(short), reps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    fit(iters)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t
+    return {"ms": ms, "iter_ms": (ms - ms_short) / (iters - short), "host_s": host_s,
+            "peak_gb": torch.cuda.max_memory_allocated() / 2**30}
+
+
+def launches_a_fit(fit, iters: int):
+    """Device launches of one fit, from ``torch.profiler``: kernels and
+    memory operations counted on fits of 2 and 4 iterations, the difference
+    a launch count an iteration, extended to ``iters``. None where the
+    profiler records no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def count(n):
+        fit(n)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fit(n)
+            torch.cuda.synchronize()
+        return sum(1 for ev in prof.events()
+                   if str(getattr(ev, "device_type", "")).endswith("CUDA"))
+
+    n2, n4 = count(2), count(4)
+    if n2 == 0 or n4 <= n2:
+        return None
+    per_iter = (n4 - n2) / 2
+    return {"an_iteration": per_iter, "a_fit": int(n2 + per_iter * (iters - 2))}
+
+
+def w_close(got, ref, scale_of, what: str, tol: float = 5e-5) -> float:
+    """Fitted total variance on the card against the same call on CPU
+    tensors: within ``tol`` of the slice's largest |w| (two float32 LM runs
+    take accept/reject decisions inside rounding, so their iterate paths
+    differ; the bound of the CPU parity tests)."""
+    err = slice_errors(got, ref, scale_of).max()
+    check(float(err) <= tol, f"{what}: fitted w within {tol:g} of the slice's scale on the card "
+          f"and on CPU tensors (got {float(err):.3e})")
+    return float(err)
+
+
+def slice_errors(got, ref, scale_of) -> torch.Tensor:
+    """Per slice, the largest |got - ref| over the slice's largest |w|."""
+    scale = scale_of.abs().amax(dim=-1)
+    return (got.cpu() - ref).abs().amax(dim=-1) / scale
+
+
+def recovery(w_fit, clean, what: str) -> float:
+    rmse = float(torch.sqrt(((w_fit - clean) ** 2).mean()))
+    check(rmse < 5e-4 and bool(torch.isfinite(w_fit).all()),
+          f"{what}: rmse in w against the generating smile < 5e-4 (got {rmse:.3e})")
+    return rmse
+
+
+def calibrated_fits(P, data) -> dict:
+    """Phase 9 (a)-(c): the batched fits on the card, each held to the same
+    call on CPU tensors at P["cpu"] surfaces and to the generating smile,
+    and timed."""
+    from iv_interpolation_tpu_torch.ops import essvi, sabr, svi
+
+    B, E, n, iters, C = P["B"], P["E"], P["N"], P["iters"], P["cpu"]
+    k_dev, T_dev = data["k"].to(DEV), data["T"].to(DEV)
+    dev = {m: a.to(DEV) for m, a in data["w"].items()}
+    clean = {m: a.to(DEV) for m, a in data["clean"].items()}
+    out = {}
+
+    def report(name, unit, count, t, rmse, err, launches, extra=""):
+        la = ("not measured" if launches is None else
+              f"{launches['a_fit']:,} a fit ({launches['an_iteration']:,.0f} an iteration)")
+        log(f"  {name}: {t['ms']:.1f} ms a fit (device), {t['host_s'] * 1e3:.1f} ms host, "
+            f"{t['iter_ms']:.3f} ms an LM iteration, {count / (t['ms'] / 1e3):,.0f} {unit}/s, "
+            f"peak {t['peak_gb']:.2f} GiB, device launches {la}; rmse vs the generating "
+            f"smile {rmse:.2e}, card vs CPU tensors {err:.2e} of scale{extra}")
+        out[name] = dict(t, rate=count / (t["ms"] / 1e3), rmse=rmse, launches=launches)
+
+    # (a) SVI on the B x E slices
+    for name, kw in (("svi quasi", {}), ("svi quasi + hinge", {"butterfly_penalty": 10.0}),
+                     ("svi quasi + huber", {"loss": "huber"})):
+        fit = lambda it, kw=kw: svi.fit_svi_batched(k_dev, dev["svi"], max_iters=it,
+                                                    init="quasi", **kw)
+        res = fit(iters)
+        w_fit = svi.svi_total_variance(res.params, k_dev)
+        check(tuple(res.params.shape) == (B, E, 5) and res.params.dtype == torch.float32,
+              f"(a) {name}: params shape and dtype")
+        rmse = recovery(w_fit, clean["svi"], f"(a) {name}")
+        ref = svi.fit_svi_batched(data["k"][:C], data["w"]["svi"][:C], max_iters=iters,
+                                  init="quasi", **kw)
+        err = w_close(w_fit[:C], svi.svi_total_variance(ref.params, data["k"][:C]),
+                      data["w"]["svi"][:C], f"(a) {name}")
+        report(name, "slices", B * E, timed_fit(fit, iters), rmse, err,
+               launches_a_fit(fit, iters) if not kw else None,
+               f"; accepted steps mean {float(res.n_accepted.float().mean()):.1f}, "
+               f"converged {float(res.converged.float().mean()):.1%}")
+
+    # (b) eSSVI: the block solver on every surface, the dense one on a part
+    for name, solver, nb, nc in (("essvi block", "block", B, C),
+                                 ("essvi dense", "dense", P["dense_B"], P["dense_cpu"])):
+        fit = lambda it, solver=solver, nb=nb: essvi.fit_essvi_batched(
+            k_dev[:nb], dev["essvi"][:nb], max_iters=it, solver=solver)
+        res = fit(iters)
+        w_fit = essvi.essvi_w(res.params, k_dev[:nb])
+        check(tuple(res.params.shape) == (nb, E, 3), f"(b) {name}: params shape")
+        theta = res.params[..., 0]
+        check(bool((theta[:, 1:] > theta[:, :-1]).all()), f"(b) {name}: theta increasing")
+        rmse = recovery(w_fit, clean["essvi"][:nb], f"(b) {name}")
+        ref = essvi.fit_essvi_batched(data["k"][:nc], data["w"]["essvi"][:nc], max_iters=iters,
+                                      solver=solver)
+        err = w_close(w_fit[:nc], essvi.essvi_w(ref.params, data["k"][:nc]),
+                      data["w"]["essvi"][:nc], f"(b) {name}")
+        report(name, "surfaces", nb, timed_fit(fit, iters), rmse, err,
+               launches_a_fit(fit, iters),
+               f"; {nb} surfaces; accepted steps mean {float(res.n_accepted.float().mean()):.1f}")
+
+    # (c) SABR on the B x E slices
+    K_dev, iv_dev, F_dev = torch.exp(k_dev), data["iv"]["sabr"].to(DEV), torch.ones_like(T_dev)
+    fit = lambda it: sabr.fit_sabr_batched(K_dev, iv_dev, F_dev, T_dev, max_iters=it,
+                                           fix_beta=0.5)
+    res = fit(iters)
+    vol = sabr.sabr_vol(res.params, F_dev, K_dev, T_dev)
+    w_fit = vol * vol * T_dev[..., None]
+    check(bool((res.params[..., 1] == 0.5).all()), "(c) sabr: beta pinned")
+    rmse = recovery(w_fit, clean["sabr"], "(c) sabr")
+    kc, Tc = data["k"][:C], data["T"][:C]
+    ref = sabr.fit_sabr_batched(torch.exp(kc), data["iv"]["sabr"][:C], torch.ones_like(Tc), Tc,
+                                max_iters=iters, fix_beta=0.5)
+    vol_ref = sabr.sabr_vol(ref.params, torch.ones_like(Tc), torch.exp(kc), Tc)
+    err = w_close(w_fit[:C], vol_ref * vol_ref * Tc[..., None], data["w"]["sabr"][:C], "(c) sabr")
+    report("sabr", "slices", B * E, timed_fit(fit, iters), rmse, err, launches_a_fit(fit, iters))
+    return out
+
+
+def calibrated_surfaces(P, data) -> dict:
+    """Phase 9 (d) and (e): ``fit_eval_surface`` for the three methods and
+    ``greek_surfaces`` on its grids, held to CPU tensors at P["cpu"]
+    surfaces. ``fit_eval_surface`` starts SVI from the heuristic init, from
+    which some slices are still moving after 32 iterations, and two
+    float32 runs that are still moving end at different points: w_grid
+    within 5e-5 of the slice's scale on at least 99 % of the slices and
+    within 1e-3 on all, the per-surface fit_rmse within 1e-5, and at most
+    2 of the 2 x 64 flags different (a g or a calendar gap that sits on
+    its tolerance may fall on either side of it on the two devices)."""
+    from iv_interpolation_tpu_torch.surface import greeks, surface
+
+    B, E, M, iters, C = P["B"], P["E"], P["M"], P["iters"], P["cpu"]
+    k_dev, T_dev = data["k"].to(DEV), data["T"].to(DEV)
+    out, grids = {}, None
+    for method, _ in CALIB_RUNS:
+        iv_dev = data["iv"][method].to(DEV)
+        step = lambda: surface.fit_eval_surface(k_dev, iv_dev, T_dev, method=method, n_grid=M,
+                                                svi_iters=iters)
+        res = step()
+        check(tuple(res["w_grid"].shape) == (B, E, M) and res["w_grid"].dtype == torch.float32
+              and bool(torch.isfinite(res["w_grid"]).all() and torch.isfinite(res["g"]).all()),
+              f"(d) {method}: w_grid and g finite, (B, E, M)")
+        ref = surface.fit_eval_surface(data["k"][:C], data["iv"][method][:C], data["T"][:C],
+                                       method=method, n_grid=M, svi_iters=iters)
+        errs = slice_errors(res["w_grid"][:C], ref["w_grid"], data["w"][method][:C])
+        near, err = float((errs <= 5e-5).float().mean()), float(errs.max())
+        rmse_gap = float((res["fit_rmse"][:C].cpu() - ref["fit_rmse"]).abs().max())
+        differ = sum(int((res[f][:C].cpu() != ref[f]).sum())
+                     for f in ("butterfly_ok", "calendar_ok"))
+        log(f"  (d) {method}: card vs CPU tensors on {C} surfaces: w_grid within 5e-5 of "
+            f"scale on {near:.1%} of the slices, worst {err:.2e}, median "
+            f"{float(errs.median()):.2e}; fit_rmse gap {rmse_gap:.2e}; flags that differ {differ}")
+        check(near >= 0.99 and err <= 1e-3, f"(d) {method}: w_grid as on CPU tensors "
+              f"({near:.1%} of slices within 5e-5, worst {err:.2e})")
+        check(rmse_gap <= 1e-5, f"(d) {method}: fit_rmse as on CPU tensors ({rmse_gap:.2e})")
+        check(differ <= 2, f"(d) {method}: flags as on CPU tensors ({differ} differ)")
+        rmse = float(res["fit_rmse"].median())
+        check(rmse < 5e-4, f"(d) {method}: median fit_rmse < 5e-4 (got {rmse:.3e})")
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(step, 2)
+        both = float((res["butterfly_ok"] & res["calendar_ok"]).float().mean())
+        log(f"  (d) fit_eval_surface {method}: {ms:.1f} ms a call, {B / (ms / 1e3):,.0f} "
+            f"surfaces/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; median "
+            f"fit_rmse {rmse:.2e}, both flags clean {both:.1%}")
+        out[method] = {"ms": ms, "surfaces_per_s": B / (ms / 1e3), "both_clean": both}
+        if method == "svi":
+            grids = (res["k_grid"], res["iv_grid"])
+    rng = np.random.default_rng(P["seed"] + 1)
+    spot = torch.from_numpy(rng.uniform(50, 150, B).astype(np.float32))
+    rate = torch.from_numpy(rng.uniform(0.0, 0.05, B).astype(np.float32))
+    call = lambda dev_: greeks.greek_surfaces(grids[0].to(dev_), grids[1].to(dev_),
+                                              data["T"].to(dev_), spot.to(dev_), rate.to(dev_))
+    got = call(DEV)
+    ref = greeks.greek_surfaces(grids[0][:C].cpu(), grids[1][:C].cpu(), data["T"][:C],
+                                spot[:C], rate[:C])
+    worst = 0.0
+    for name, g in ref.items():
+        check(tuple(got[name].shape) == (B, E, M) and bool(torch.isfinite(got[name]).all()),
+              f"(e) {name}: finite, (B, E, M)")
+        scale = float(g.abs().max())
+        e = float((got[name][:C].cpu() - g).abs().max()) / scale
+        check(e <= 64 * EPS32, f"(e) {name} within 64 eps32 of its scale {scale:.3g} ({e:.2e})")
+        worst = max(worst, e)
+    ms = cuda_ms(lambda: call(DEV), 5)
+    log(f"  (e) greek_surfaces on {B} x {E} x {M}: {ms:.3f} ms a call, six grids within "
+        f"{worst:.2e} of scale of CPU tensors")
+    out["greeks_ms"] = ms
+    return out
+
+
+def calibrated_task(store, tridiag, agg) -> dict:
+    """Phase 9 (f): SURFACE_TASK's store through ``run_surface_fit`` with
+    svi, essvi and sabr on the card (production config), each warmed on
+    one underlying: surfaces/s, host seconds by phase, idle share, the
+    share of surfaces with both flags clean, the median fit_rmse; against
+    the same run on CPU tensors fed the card's chains: the counts of clean
+    surfaces within 5 of 256, the median fit_rmse within a factor 1.5,
+    total variance within 5e-5 of the table's scale on 99 % of the rows."""
+    from iv_interpolation_tpu_torch import models
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline import surface_task as task
+
+    work, out = surface_work(), {}
+    frame = store.read(st.INTERPOLATED)
+    for method, surface in CALIB_RUNS:
+        cfg = surface_config(get_config, work, dict(surface, smile_method=method))
+        task.run_surface_fit(cfg, store, limit=12, device=DEV)
+        store.drop(task.SURFACES)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with SurfaceProbe(task, models, tridiag, agg, on_card=True) as probe:
+            timed = TimedStore(store, probe.host)
+            t = time.perf_counter()
+            rep = task.run_surface_fit(cfg, timed, device=DEV)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        busy, host = probe.busy_s(), dict(probe.host)
+        host["unpack"] = wall - sum(host.values())
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(rep["surfaces"] == 256 and rep["grid_rows"] == SURFACE_TASK["grid_rows"]
+              and rep["method"] == method, f"(f) {method}: 256 surfaces: {rep}")
+        check(probe.plain == 0, f"(f) {method}: no plain version called on the card")
+        card = sorted_surfaces(store, task)
+        cpu_store = st.MemoryStore()
+        cpu_store.write(st.INTERPOLATED, frame)
+        t = time.perf_counter()
+        with SurfaceProbe(task, models, tridiag, agg, on_card=False, chains=probe.chains):
+            cpu_rep = task.run_surface_fit(cfg, cpu_store, device="cpu")
+        cpu_s = time.perf_counter() - t
+        cpu = sorted_surfaces(cpu_store, task)
+        check(all(abs(rep[f] - cpu_rep[f]) <= 5 for f in ("butterfly_ok", "calendar_ok"))
+              and len(card) == len(cpu),
+              f"(f) {method}: clean counts as on CPU tensors: {rep} / {cpu_rep}")
+        per = lambda df: df.groupby("underlying")[["butterfly_ok", "calendar_ok", "fit_rmse"]].first()
+        a, b = per(card), per(cpu)
+        both = float((a["butterfly_ok"] & a["calendar_ok"]).mean())
+        med, med_cpu = float(a["fit_rmse"].median()), float(b["fit_rmse"].median())
+        check(max(med, med_cpu) <= 1.5 * min(med, med_cpu) + 1e-7 and np.isfinite(med),
+              f"(f) {method}: median fit_rmse {med:.3e} on the card, {med_cpu:.3e} on CPU tensors")
+        x, y = (d["total_variance"].to_numpy(np.float64) for d in (card, cpu))
+        near = float((np.abs(x - y) <= 5e-5 * max(1.0, np.abs(y).max())).mean())
+        check(near >= 0.99, f"(f) {method}: total variance within 5e-5 of scale on {near:.2%} "
+              f"of the rows")
+        log(f"  (f) {method}: {wall:.3f} s, {256 / wall:,.0f} surfaces/s end to end; host s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+            + f"; device busy {busy * 1e3:.1f} ms (fit), idle share {1 - busy / wall:.1%}, "
+            f"peak {peak:.2f} GiB; both flags clean {both:.1%} (card) / "
+            f"{float((b['butterfly_ok'] & b['calendar_ok']).mean()):.1%} (CPU tensors), median "
+            f"fit_rmse {med:.2e} / {med_cpu:.2e}; CPU tensors in {cpu_s:.1f} s; total variance "
+            f"within 5e-5 of scale on {near:.2%} of rows")
+        out[method] = {"surfaces_per_s": 256 / wall, "both_clean": both, "fit_rmse": med}
+    store.drop(task.SURFACES)
+    return out
+
+
+def parse_phases(argv) -> set | None:
+    """``--phases 2,9``: the phases a development run keeps (phase 1, the
+    build, always runs). None, the default, runs them all."""
+    if not argv:
+        return None
+    if len(argv) != 2 or argv[0] != "--phases":
+        raise SystemExit("usage: chip_smoke.py [--phases 2,9]")
+    return {int(x) for x in argv[1].split(",")}
+
+
+def main(argv=()) -> int:
+    only = parse_phases(list(argv))
+    want = lambda n: only is None or n in only
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible; nothing was run",
               file=sys.stderr)
@@ -1955,16 +2434,13 @@ def main() -> int:
           and torch.get_float32_matmul_precision() == "highest",
           "float32 matmul precision pinned to full float32")
 
-    log("phase 2: kernels against their plain versions")
-    b1 = tridiag_cases(tridiag, lib)
-    b2 = stream_agg_cases(agg)
-
     # each main path runs with the launch counts set to 0 just before it
     # and read just after it
     def reset_counts():
         tridiag.tridiag_solve_cuda.launches = 0
         tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
         agg.aggregate_ohlcv_cuda.launches = 0
+        agg.aggregate_ohlcv_cuda.launches_by_dtype.update(float32=0, float64=0)
 
     def read_counts():
         return {"b1": tridiag.tridiag_solve_cuda.launches,
@@ -1975,58 +2451,104 @@ def main() -> int:
         return {"b1_f32": by["float32"], "b1_f64": by["float64"],
                 "b2": agg.aggregate_ohlcv_cuda.launches}
 
+    def done(n):
+        log(f"  phase {n} done at {time.perf_counter() - t_start:.1f} s")
+
+    if want(2):
+        log("phase 2: kernels against their plain versions")
+        b1 = tridiag_cases(tridiag, lib)
+        b2 = stream_agg_cases(agg)
+        b2_f64 = stream_agg_cases(agg, torch.float64)
+        done(2)
     reset_counts()
-    log("phase 3: surface step")
-    surf = surface_step(surface, tridiag)
-    log("phase 4: streaming refit")
-    stream = streaming_session(svc, agg)
-    config = types.SimpleNamespace(surface=types.SimpleNamespace(grid_strikes=50))
-    replay = svc.run_stream_replay(config, device=DEV, **REPLAY)
-    torch.cuda.synchronize()
-    check(replay["device"].startswith(DEV)
-          and replay["butterfly_ok"] == REPLAY["n_underlyings"],
-          f"run_stream_replay on the card, all surfaces clean: {replay}")
-    log(f"  run_stream_replay: {replay}")
+    if want(3):
+        log("phase 3: surface step")
+        surf = surface_step(surface, tridiag)
+    if want(4):
+        log("phase 4: streaming refit")
+        stream = streaming_session(svc, agg)
+        config = types.SimpleNamespace(surface=types.SimpleNamespace(grid_strikes=50))
+        replay = svc.run_stream_replay(config, device=DEV, **REPLAY)
+        torch.cuda.synchronize()
+        check(replay["device"].startswith(DEV)
+              and replay["butterfly_ok"] == REPLAY["n_underlyings"],
+              f"run_stream_replay on the card, all surfaces clean: {replay}")
+        log(f"  run_stream_replay: {replay}")
     surface_stream = read_counts()
-    check(surface_stream["b1"] > 0 and surface_stream["b2"] > 0,
-          f"both kernels ran on the surface and streaming paths: {surface_stream}")
-    log(f"  launches: {surface_stream}; phases 3-4 done at "
-        f"{time.perf_counter() - t_start:.1f} s")
-    log("phase 5: fused task pipeline")
-    reset_counts()
-    pipe = pipeline_main_path(runner, tasks, segment_ohlcv, agg, tridiag)
-    fused = read_counts()
-    check(fused == {"b1": 1, "b2": len(pipe["batches"]) + 1},
-          f"the pipeline launched B2 once a batch and B1 in the cubic batch: {fused}")
-    log(f"  launches: {fused}")
-    checks = pipeline_checks(pipe, runner, tasks, agg)
-    log(f"  phase 5 done at {time.perf_counter() - t_start:.1f} s")
-    log("phase 6: the host runner")
-    log(f"  card: {smi.splitlines()[0]}")
-    host = host_runner(reset_counts, read_counts)
-    log(f"  launches: {host['launches']}; dispatch orders, wall s by batches in flight: "
-        f"{host['order_s']}; phase 6 done at {time.perf_counter() - t_start:.1f} s")
-    check(tridiag.tridiag_solve_cuda.launches_by_dtype["float64"] == 0,
-          "phases 3-6 solve in float32 only")
-    log("phase 7: the surface task")
-    surf_task = surface_task_phase(reset_counts, read_by_dtype, tridiag, agg)
-    log(f"  launches: {surf_task['launches']}; phase 7 done at "
-        f"{time.perf_counter() - t_start:.1f} s")
-    log("phase 8: serving")
-    served = serving_phase(surf_task["store"], reset_counts, read_by_dtype)
-    shutil.rmtree(surf_task["work"], ignore_errors=True)
-    log(f"  launches: {served['launches']}; phase 8 done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+    if want(3) and want(4):
+        check(surface_stream["b1"] > 0 and surface_stream["b2"] > 0,
+              f"both kernels ran on the surface and streaming paths: {surface_stream}")
+        log(f"  launches: {surface_stream}")
+        done(4)
+    if want(5):
+        log("phase 5: fused task pipeline")
+        reset_counts()
+        pipe = pipeline_main_path(runner, tasks, segment_ohlcv, agg, tridiag)
+        fused = read_counts()
+        check(fused == {"b1": 1, "b2": len(pipe["batches"]) + 1},
+              f"the pipeline launched B2 once a batch and B1 in the cubic batch: {fused}")
+        log(f"  launches: {fused}")
+        checks = pipeline_checks(pipe, runner, tasks, agg)
+        done(5)
+    if want(6):
+        log("phase 6: the host runner")
+        log(f"  card: {smi.splitlines()[0]}")
+        host = host_runner(reset_counts, read_counts)
+        log(f"  launches: {host['launches']}, B2 float64 {host['b2_f64_launches']}; dispatch "
+            f"orders, wall s by batches in flight: {host['order_s']}")
+        done(6)
+        check(tridiag.tridiag_solve_cuda.launches_by_dtype["float64"] == 0,
+              "phases 3-6 solve in float32 only")
+    store = None
+    if want(7):
+        log("phase 7: the surface task")
+        surf_task = surface_task_phase(reset_counts, read_by_dtype, tridiag, agg)
+        store = surf_task["store"]
+        log(f"  launches: {surf_task['launches']}")
+        done(7)
+    if want(8):
+        log("phase 8: serving")
+        if store is None:
+            store = surface_store(np.random.default_rng(SURFACE_TASK["seed"]))[0]
+        served = serving_phase(store, reset_counts, read_by_dtype)
+        log(f"  launches: {served['launches']}")
+        done(8)
+    if want(9):
+        log("phase 9: the calibrated families")
+        log(f"  card: {smi.splitlines()[0]}")
+        data = calib_data(CALIB)
+        fits = calibrated_fits(CALIB, data)
+        calib = calibrated_surfaces(CALIB, data)
+        del data
+        torch.cuda.empty_cache()
+        if store is None:
+            store = surface_store(np.random.default_rng(SURFACE_TASK["seed"]))[0]
+        reset_counts()
+        calib_task = calibrated_task(store, tridiag, agg)
+        check(read_counts() == {"b1": 0, "b2": 0},
+              f"the calibrated families launch neither kernel: {read_counts()}")
+        done(9)
+    shutil.rmtree(surface_work(), ignore_errors=True)
+    if only is not None:
+        log(f"partial run of phases {sorted(only)}: no result line")
+        return 0
     log(f"  summary: {surf['surfaces_per_s']:,.0f} surfaces/s, warm refit "
         f"{stream['warm_refit_ms']:.3f} ms ({stream['underlyings_per_s']:,.0f} "
         f"underlyings/s), fused_batch {pipe['rows_per_s']:,.0f} output rows/s, "
         f"runner {host['rows_per_s']:,.0f} output rows/s ({host['store']}), surface task "
         + ", ".join(f"{k} {v:,.0f}" for k, v in surf_task["rates"].items())
-        + f" surfaces/s, served refit {served['refit_ms']:.2f} ms; all phases done at "
-        f"{time.perf_counter() - t_start:.1f} s")
+        + f" surfaces/s, served refit {served['refit_ms']:.2f} ms; calibrated: svi "
+        f"{fits['svi quasi']['rate']:,.0f} slices/s, essvi block "
+        f"{fits['essvi block']['rate']:,.0f} surfaces/s, sabr {fits['sabr']['rate']:,.0f} "
+        f"slices/s, fit_eval_surface "
+        + ", ".join(f"{m} {calib[m]['surfaces_per_s']:,.0f}" for m, _ in CALIB_RUNS)
+        + " surfaces/s, surface task "
+        + ", ".join(f"{m} {v['surfaces_per_s']:,.0f}" for m, v in calib_task.items())
+        + f" surfaces/s; all phases done at {time.perf_counter() - t_start:.1f} s")
     b2["max_abs_err"] = max(b2["max_abs_err"], checks["b2_err"])
 
-    # launches on each main path, by kernel (phases 3-6 solve in float32)
+    # launches on each main path, by kernel (phases 3-6 solve in float32;
+    # B2 runs in float64 on phase 6's float64 pipeline only)
     paths = {
         "tridiag_thomas_f32": {
             "surface step + streaming (phases 3-4)": surface_stream["b1"],
@@ -2037,28 +2559,26 @@ def main() -> int:
             "streaming (phase 4)": surface_stream["b2"], "fused_batch (phase 5)": fused["b2"],
             "runner (phase 6)": host["launches"]["b2"],
             "serving refits (phase 8)": served["launches"]["b2"]},
+        "stream_agg_f64": {"float64 pipeline (phase 6)": host["b2_f64_launches"]},
     }
     check(all(n > 0 for n in paths["tridiag_thomas_f64"].values())
           and paths["tridiag_thomas_f32"]["surface task (phase 7)"] > 0
-          and paths["stream_agg"]["serving refits (phase 8)"] > 0,
-          f"B1 float32 and float64 ran on the surface task, B2 on the served refits: {paths}")
+          and paths["stream_agg"]["serving refits (phase 8)"] > 0
+          and paths["stream_agg_f64"]["float64 pipeline (phase 6)"] > 0,
+          f"B1 float32 and float64 ran on the surface task, B2 on the served refits and, in "
+          f"float64, on the float64 pipeline: {paths}")
     thomas = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/tridiag_thomas.cu",
                   replaces="iv_interpolation_tpu/ops/pallas/tridiag_pallas.py:57")
+    agg_src = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/stream_agg.cu",
+                  replaces="iv_interpolation_tpu/ops/pallas/stream_agg_pallas.py:163")
     # per kernel: the numbers of its first main-path shape (B1 float32 the
     # surface step, B1 float64 the parity surface task's larger bucket, B2
     # the candle stage), and every main-path shape under "shapes"
-    kernels = [
-        {"name": "tridiag_thomas_f32", **thomas,
-         "launches": sum(paths["tridiag_thomas_f32"].values()),
-         "paths": paths["tridiag_thomas_f32"], **b1["float32"]},
-        {"name": "tridiag_thomas_f64", **thomas,
-         "launches": sum(paths["tridiag_thomas_f64"].values()),
-         "paths": paths["tridiag_thomas_f64"], **b1["float64"]},
-        {"name": "stream_agg", "route": "cuda",
-         "source": "iv_interpolation_tpu_torch/csrc/stream_agg.cu",
-         "replaces": "iv_interpolation_tpu/ops/pallas/stream_agg_pallas.py:163",
-         "launches": sum(paths["stream_agg"].values()), "paths": paths["stream_agg"], **b2},
-    ]
+    results = {"tridiag_thomas_f32": (thomas, b1["float32"]),
+               "tridiag_thomas_f64": (thomas, b1["float64"]),
+               "stream_agg": (agg_src, b2), "stream_agg_f64": (agg_src, b2_f64)}
+    kernels = [{"name": name, **source, "launches": sum(paths[name].values()),
+                "paths": paths[name], **rows} for name, (source, rows) in results.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2067,4 +2587,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

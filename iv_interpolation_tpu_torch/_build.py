@@ -140,6 +140,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         # base_bucket, min_count, tile, threads, stream
         "ivt_stream_agg_i32": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
         "ivt_stream_agg_i64": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
+        "ivt_stream_agg_i32_f64": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
+        "ivt_stream_agg_i64_f64": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -15,10 +15,11 @@ The operator surface of the JAX package's ``iv-tpu``, on one card:
                     default) unless ``--device cpu`` is given
 
 Run as ``iv-tpu-torch ...`` or ``python -m iv_interpolation_tpu_torch.cli``.
-The JAX CLI's flags that are not ported yet, and the surface families
-that are not (``--method svi|essvi|sabr|rbf|ah``), are accepted by the
-parser and refused with exit code 2 and the ROADMAP item that will bring
-them; none is ignored.
+The JAX CLI's flags that are not ported yet, the surface families that
+are not (``--method rbf|ah``) and the config knobs that would need an
+unported feature (``monitoring.enable_profiler``, the postgres backend)
+are accepted by the parser or the config and refused with exit code 2
+and the ROADMAP item that will bring them; none is ignored.
 """
 
 from __future__ import annotations
@@ -70,8 +71,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="limit number of symbols processed")
     p.add_argument("--method", default=None, choices=list(models.available()),
                    help="smile/surface family for --task surface "
-                        "(default: config surface.smile_method; svi, essvi, "
-                        "sabr, rbf and ah are not ported yet)")
+                        "(default: config surface.smile_method; rbf and "
+                        "ah are not ported yet)")
     p.add_argument("--parity", action="store_true",
                    help="float64 cubic-spline surface fits: the persisted "
                         "(total_variance, total_variance_lo) pair matches "
@@ -195,6 +196,8 @@ def main(argv=None) -> int:
         config.surface.compensated = True
     if config.storage.backend == "postgres":
         return _refuse("storage backend 'postgres'", _PG)
+    if config.monitoring.enable_profiler:
+        return _refuse("monitoring.enable_profiler", _VALIDATE)
     if args.shard:
         try:
             i_s, n_s = args.shard.split("/")

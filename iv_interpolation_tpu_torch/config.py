@@ -107,9 +107,10 @@ class DataBridgeConfig:
 
 @dataclass
 class SurfaceConfig:
-    """Vol-surface settings. The port's surface task is not ported yet;
-    ``fit_eval_surface`` and the streaming session read ``grid_strikes``
-    and ``spline_bc`` through their callers."""
+    """Vol-surface settings, read by the surface task's families
+    (``models``), ``fit_eval_surface`` through its callers and the
+    streaming session. The ``rbf_*`` and ``ah_*`` knobs belong to families
+    that are not ported yet."""
 
     smile_method: str = "cubic_spline"
     # 'cubic_spline' | 'smoothing_spline' | 'svi' | 'essvi' | 'sabr' | 'rbf' | 'ah'

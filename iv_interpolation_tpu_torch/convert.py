@@ -40,7 +40,9 @@ def ring_state_from_numpy(ring, device: torch.device | str = "cuda") -> RingStat
 
 
 def surface_fit_from_numpy(fit, device: torch.device | str = "cuda") -> SurfaceFit:
-    """``surface.surface.SurfaceFit`` (numpy fields) -> the port's."""
+    """``surface.surface.SurfaceFit`` (numpy fields) -> the port's, for any
+    of the five slice-wise methods: ``coefs`` is (B, E, n) for the splines,
+    (B, E, 5) svi, (B, E, 3) essvi, (B, E, 4) sabr."""
     return SurfaceFit(method=fit.method,
                       **{f: _tensor(getattr(fit, f), device)
                          for f in ("k", "expiries", "w", "coefs")})

@@ -16,12 +16,14 @@
 // valid = count > 0 and count >= min_count (the plain version's
 // finish_candles, done here in the epilogue).
 //
-// Layout: inputs (B, L) row-major, minutes int32 or int64; outputs
+// Layout: inputs (B, L) row-major, minutes int32 or int64, values float32
+// or float64 (all five of one type, outputs in the same); outputs
 // (B, num_segments). Grid (B, tiles): block (r, y) owns row r and the
 // buckets [y * tile, y * tile + tile). The plan makes tile = num_segments,
 // one tile, whenever the accumulators fit in shared memory (24 bytes a
-// bucket, up to kMaxTile buckets); only beyond that do several tile
-// blocks each read the row.
+// bucket in float32, up to kMaxTile buckets; 36 bytes in float64, up to
+// 6,144 buckets in the 227 KiB a block may hold); only beyond that do
+// several tile blocks each read the row.
 //
 // What bounds it on the H100: the bytes, once the atomics are cut. A
 // call must read valid, and minutes, h, l, v of the valid rows, o and c
@@ -44,7 +46,8 @@
 //   feed, need one or two rounds per 128 ticks; unsorted rows stay
 //   correct with up to four;
 // - high and low are atomicMax/atomicMin on an order-preserving integer
-//   image of the float (exact, the same result in any order); first and
+//   image of the value (32-bit for float32, 64-bit for float64; exact, the
+//   same result in any order); first and
 //   last row are integer atomics, so open and close are read once per
 //   nonempty bucket after the barrier;
 // - the bucket id is a floor division by a multiply-high with a magic
@@ -54,10 +57,10 @@
 //   conversion on the host; ids out of range are dropped, as in the plain
 //   version.
 //
-// Volume is a float sum in shared memory whose order changes from run to
-// run. Each result is a float32 sum of the bucket's values in some order,
-// so it lies within (count - 1) * eps32 * sum |v| of the exact sum, like
-// any float32 sum of the same values.
+// Volume is a sum in shared memory, in the values' type, whose order
+// changes from run to run. Each result is a sum of the bucket's values in
+// some order, so it lies within (count - 1) * eps * sum |v| of the exact
+// sum (eps of the values' type), like any such sum of the same values.
 //
 // The bucket id uses floor division: C++ '/' truncates toward zero and
 // would put minute -1 of bucket_minutes 5 into bucket 0 instead of -1.
@@ -68,20 +71,58 @@
 
 namespace {
 
-constexpr int kMaxTile = 8192;           // 192 KiB of accumulators a block
+constexpr int kMaxTile = 8192;           // 192 KiB of float32 accumulators a block
 constexpr int kDefaultSmem = 48 * 1024;  // above this, opt in per kernel
 constexpr int kMaxSmem = 232448;         // 227 KiB: the H100's block limit
 constexpr unsigned kFull = 0xffffffffu;
 
-// Order-preserving map float -> int: a < b as floats iff image(a) <
-// image(b) as signed ints (for non-NaN values). It is its own inverse.
-__device__ __forceinline__ int ordered_image(float x) {
-  const int bits = __float_as_int(x);
-  return bits >= 0 ? bits : bits ^ 0x7fffffff;
-}
+// Per value type: the integer type of its order-preserving image and that
+// image's extremes. The map value -> image keeps order (a < b as values iff
+// image(a) < image(b) as signed integers, for non-NaN values) and is its
+// own inverse.
+template <typename V>
+struct Value;
 
-__device__ __forceinline__ float from_image(int image) {
-  return __int_as_float(image >= 0 ? image : image ^ 0x7fffffff);
+template <>
+struct Value<float> {
+  using Image = int;
+  static constexpr Image kLowest = INT_MIN;
+  static constexpr Image kHighest = INT_MAX;
+  static __device__ __forceinline__ Image ordered_image(float x) {
+    const int bits = __float_as_int(x);
+    return bits >= 0 ? bits : bits ^ 0x7fffffff;
+  }
+  static __device__ __forceinline__ float from_image(Image image) {
+    return __int_as_float(image >= 0 ? image : image ^ 0x7fffffff);
+  }
+  static __device__ __forceinline__ float nan() {
+    return __int_as_float(0x7fc00000);
+  }
+};
+
+template <>
+struct Value<double> {
+  using Image = long long;
+  static constexpr Image kLowest = LLONG_MIN;
+  static constexpr Image kHighest = LLONG_MAX;
+  static __device__ __forceinline__ Image ordered_image(double x) {
+    const long long bits = __double_as_longlong(x);
+    return bits >= 0 ? bits : bits ^ 0x7fffffffffffffffll;
+  }
+  static __device__ __forceinline__ double from_image(Image image) {
+    return __longlong_as_double(image >= 0 ? image
+                                           : image ^ 0x7fffffffffffffffll);
+  }
+  static __device__ __forceinline__ double nan() {
+    return __longlong_as_double(0x7ff8000000000000ll);
+  }
+};
+
+// Shared-memory bytes a bucket's accumulators take: high and low images,
+// volume, and count, first row, last row as ints.
+template <typename V>
+constexpr size_t bucket_bytes() {
+  return 2 * sizeof(typename Value<V>::Image) + sizeof(V) + 3 * sizeof(int);
 }
 
 // floor(m / bm) for a bucket_minutes bm > 0 fixed for the launch, with no
@@ -134,6 +175,12 @@ __device__ __forceinline__ void load4(const float* p, float out[4]) {
   out[0] = q.x; out[1] = q.y; out[2] = q.z; out[3] = q.w;
 }
 
+__device__ __forceinline__ void load4(const double* p, double out[4]) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  out[0] = a.x; out[1] = a.y; out[2] = b.x; out[3] = b.y;
+}
+
 // Bit k set where tick t0 + k of the row exists and is valid; one 32-bit
 // load for the four flags where the row allows (vec: L % 4 == 0, aligned).
 __device__ __forceinline__ unsigned valid_bits(const unsigned char* row,
@@ -161,8 +208,9 @@ __device__ __forceinline__ unsigned valid_bits(const unsigned char* row,
 // total. Log-depth: in round j a lane adds the partial of the next peer
 // still in play, then the peers whose rank has bit j set drop out. Every
 // lane of the warp takes part.
+template <typename I, typename V>
 __device__ __forceinline__ void reduce_peers(unsigned peers, int lane,
-                                             int& hi, int& lo, float& vol,
+                                             I& hi, I& lo, V& vol,
                                              int& cnt, int& first,
                                              int& last) {
   unsigned rest = peers & ~((2u << lane) - 1u);  // peers above this lane
@@ -170,9 +218,9 @@ __device__ __forceinline__ void reduce_peers(unsigned peers, int lane,
   while (__any_sync(kFull, rest != 0)) {
     const int next = __ffs(rest) - 1;
     const int src = next < 0 ? lane : next;
-    const int hi2 = __shfl_sync(kFull, hi, src);
-    const int lo2 = __shfl_sync(kFull, lo, src);
-    const float vol2 = __shfl_sync(kFull, vol, src);
+    const I hi2 = __shfl_sync(kFull, hi, src);
+    const I lo2 = __shfl_sync(kFull, lo, src);
+    const V vol2 = __shfl_sync(kFull, vol, src);
     const int cnt2 = __shfl_sync(kFull, cnt, src);
     const int first2 = __shfl_sync(kFull, first, src);
     const int last2 = __shfl_sync(kFull, last, src);
@@ -189,32 +237,35 @@ __device__ __forceinline__ void reduce_peers(unsigned peers, int lane,
   }
 }
 
-template <typename M>
+template <typename M, typename V>
 __global__ void stream_agg_kernel(const M* __restrict__ minutes,
-                                  const float* __restrict__ o,
-                                  const float* __restrict__ h,
-                                  const float* __restrict__ l,
-                                  const float* __restrict__ c,
-                                  const float* __restrict__ v,
+                                  const V* __restrict__ o,
+                                  const V* __restrict__ h,
+                                  const V* __restrict__ l,
+                                  const V* __restrict__ c,
+                                  const V* __restrict__ v,
                                   const unsigned char* __restrict__ valid,
-                                  float* __restrict__ open,
-                                  float* __restrict__ high,
-                                  float* __restrict__ low,
-                                  float* __restrict__ close,
-                                  float* __restrict__ volume,
+                                  V* __restrict__ open,
+                                  V* __restrict__ high,
+                                  V* __restrict__ low,
+                                  V* __restrict__ close,
+                                  V* __restrict__ volume,
                                   int* __restrict__ count,
                                   unsigned char* __restrict__ valid_out,
                                   int L, int num_segments,
                                   FloorDiv bucket,
                                   long long base_bucket, int min_count,
                                   int tile, int vec) {
-  extern __shared__ int smem[];
-  int* s_high = smem;
-  int* s_low = s_high + tile;
-  int* s_count = s_low + tile;
+  using Val = Value<V>;
+  using Image = typename Val::Image;
+  // the widest accumulators first, so each array starts aligned
+  extern __shared__ __align__(16) unsigned char smem[];
+  Image* s_high = reinterpret_cast<Image*>(smem);
+  Image* s_low = s_high + tile;
+  V* s_vol = reinterpret_cast<V*>(s_low + tile);
+  int* s_count = reinterpret_cast<int*>(s_vol + tile);
   int* s_first = s_count + tile;
   int* s_last = s_first + tile;
-  float* s_vol = reinterpret_cast<float*>(s_last + tile);
 
   const int lo_id = blockIdx.y * tile;
   const int width = min(tile, num_segments - lo_id);
@@ -225,12 +276,12 @@ __global__ void stream_agg_kernel(const M* __restrict__ minutes,
   const int lane = threadIdx.x & 31;
 
   for (int s = threadIdx.x; s < width; s += blockDim.x) {
-    s_high[s] = INT_MIN;
-    s_low[s] = INT_MAX;
+    s_high[s] = Val::kLowest;
+    s_low[s] = Val::kHighest;
     s_count[s] = 0;
     s_first[s] = INT_MAX;
     s_last[s] = -1;
-    s_vol[s] = 0.0f;
+    s_vol[s] = V(0);
   }
   __syncthreads();
 
@@ -245,7 +296,7 @@ __global__ void stream_agg_kernel(const M* __restrict__ minutes,
     const int t0 = c0 + threadIdx.x * 4;
     unsigned pending = next;  // bit k: tick t0 + k counts
     M m[4] = {0, 0, 0, 0};
-    float hv[4] = {0, 0, 0, 0}, lv[4] = {0, 0, 0, 0}, vv[4] = {0, 0, 0, 0};
+    V hv[4] = {0, 0, 0, 0}, lv[4] = {0, 0, 0, 0}, vv[4] = {0, 0, 0, 0};
     if (pending) {
       const long long at = in_row + t0;
       if (vec) {
@@ -279,9 +330,9 @@ __global__ void stream_agg_kernel(const M* __restrict__ minutes,
     // One round per bucket id a lane still holds: the lane's ticks of the
     // bucket of its first pending tick, merged, then merged across lanes.
     while (__any_sync(kFull, pending != 0)) {
-      int key = -1, hi = INT_MIN, lo = INT_MAX, cnt = 0;
-      int first = INT_MAX, last = -1;
-      float vol = 0.0f;
+      int key = -1, cnt = 0, first = INT_MAX, last = -1;
+      Image hi = Val::kLowest, lo = Val::kHighest;
+      V vol = V(0);
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (((pending >> k) & 1u) && key < 0) key = seg[k];
@@ -289,8 +340,8 @@ __global__ void stream_agg_kernel(const M* __restrict__ minutes,
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         if (((pending >> k) & 1u) && seg[k] == key) {
-          hi = max(hi, ordered_image(hv[k]));
-          lo = min(lo, ordered_image(lv[k]));
+          hi = max(hi, Val::ordered_image(hv[k]));
+          lo = min(lo, Val::ordered_image(lv[k]));
           vol += vv[k];
           cnt += 1;
           first = min(first, t0 + k);
@@ -312,7 +363,7 @@ __global__ void stream_agg_kernel(const M* __restrict__ minutes,
   }
   __syncthreads();
 
-  const float nan = __int_as_float(0x7fc00000);
+  const V nan = Val::nan();
   for (int s = threadIdx.x; s < width; s += blockDim.x) {
     const long long out = out_row + s;
     const int n = s_count[s];
@@ -321,15 +372,15 @@ __global__ void stream_agg_kernel(const M* __restrict__ minutes,
     if (n > 0) {
       open[out] = o[in_row + s_first[s]];
       close[out] = c[in_row + s_last[s]];
-      high[out] = from_image(s_high[s]);
-      low[out] = from_image(s_low[s]);
+      high[out] = Val::from_image(s_high[s]);
+      low[out] = Val::from_image(s_low[s]);
       volume[out] = s_vol[s];
     } else {
       open[out] = nan;
       close[out] = nan;
       high[out] = nan;
       low[out] = nan;
-      volume[out] = 0.0f;
+      volume[out] = V(0);
     }
   }
 }
@@ -338,10 +389,10 @@ bool aligned(const void* p, std::uintptr_t bytes) {
   return reinterpret_cast<std::uintptr_t>(p) % bytes == 0;
 }
 
-template <typename M>
-int launch(const M* minutes, const float* o, const float* h, const float* l,
-           const float* c, const float* v, const unsigned char* valid,
-           float* open, float* high, float* low, float* close, float* volume,
+template <typename M, typename V>
+int launch(const M* minutes, const V* o, const V* h, const V* l,
+           const V* c, const V* v, const unsigned char* valid,
+           V* open, V* high, V* low, V* close, V* volume,
            int* count, unsigned char* valid_out, int B, int L,
            int num_segments, long long bucket_minutes, long long base_bucket,
            int min_count, int tile, int threads, void* stream) {
@@ -352,22 +403,26 @@ int launch(const M* minutes, const float* o, const float* h, const float* l,
   }
   const int tiles = (num_segments + tile - 1) / tile;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 6 * sizeof(int) * static_cast<size_t>(tile);
-  // Raised once per minute type to the block limit, on the first launch
-  // above the default (outside any graph capture in this package's use).
+  const size_t smem = bucket_bytes<V>() * static_cast<size_t>(tile);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  // Raised once per minute and value type to the block limit, on the first
+  // launch above the default (outside any graph capture in this package's
+  // use).
   static bool opted_in = false;
   if (smem > kDefaultSmem && !opted_in) {
     const cudaError_t err = cudaFuncSetAttribute(
-        stream_agg_kernel<M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stream_agg_kernel<M, V>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in = true;
   }
+  // 4 ticks are 16 bytes of float32 and two 16-byte loads of float64, whose
+  // rows then start 32 bytes apart
   const bool vec = L % 4 == 0 && aligned(minutes, 16) && aligned(h, 16) &&
                    aligned(l, 16) && aligned(v, 16) && aligned(valid, 4);
   const dim3 grid(static_cast<unsigned int>(B),
                   static_cast<unsigned int>(tiles));
-  stream_agg_kernel<M><<<grid, threads, smem,
+  stream_agg_kernel<M, V><<<grid, threads, smem,
                          static_cast<cudaStream_t>(stream)>>>(
       minutes, o, h, l, c, v, valid, open, high, low, close, volume, count,
       valid_out, L, num_segments, make_floor_div(bucket_minutes), base_bucket, min_count,
@@ -377,20 +432,21 @@ int launch(const M* minutes, const float* o, const float* h, const float* l,
 
 }  // namespace
 
-#define IVT_STREAM_AGG(NAME, M)                                              \
-  extern "C" int NAME(const M* minutes, const float* o, const float* h,     \
-                      const float* l, const float* c, const float* v,       \
-                      const unsigned char* valid, float* open, float* high, \
-                      float* low, float* close, float* volume, int* count,  \
-                      unsigned char* valid_out, int B, int L,               \
+#define IVT_STREAM_AGG(NAME, M, V)                                         \
+  extern "C" int NAME(const M* minutes, const V* o, const V* h, const V* l, \
+                      const V* c, const V* v, const unsigned char* valid,   \
+                      V* open, V* high, V* low, V* close, V* volume,        \
+                      int* count, unsigned char* valid_out, int B, int L,   \
                       int num_segments, long long bucket_minutes,           \
                       long long base_bucket, int min_count, int tile,       \
                       int threads, void* stream) {                          \
-    return launch<M>(minutes, o, h, l, c, v, valid, open, high, low, close, \
-                     volume, count, valid_out, B, L, num_segments,          \
-                     bucket_minutes, base_bucket, min_count, tile, threads, \
-                     stream);                                               \
+    return launch<M, V>(minutes, o, h, l, c, v, valid, open, high, low,     \
+                        close, volume, count, valid_out, B, L,              \
+                        num_segments, bucket_minutes, base_bucket,          \
+                        min_count, tile, threads, stream);                  \
   }
 
-IVT_STREAM_AGG(ivt_stream_agg_i32, int)
-IVT_STREAM_AGG(ivt_stream_agg_i64, long long)
+IVT_STREAM_AGG(ivt_stream_agg_i32, int, float)
+IVT_STREAM_AGG(ivt_stream_agg_i64, long long, float)
+IVT_STREAM_AGG(ivt_stream_agg_i32_f64, int, double)
+IVT_STREAM_AGG(ivt_stream_agg_i64_f64, long long, double)

@@ -5,7 +5,9 @@ evaluated grid.
 
 ``dev`` places a host array on the run's device in its compute dtype (the
 reference's mesh-placement hook). ``surface.svi_unroll`` is accepted by
-the config and read by no family here (ROADMAP A7).
+the config and read by no family here: it inlines the reference's
+on-device LM loop for its compiler, and the port's LM loop is a Python
+loop of eager launches with nothing to unroll.
 """
 
 from __future__ import annotations
@@ -23,6 +25,9 @@ def slicewise_fit_eval(method: str):
         dev = dev or torch.as_tensor
         return fit_eval_surface(
             dev(k), dev(iv), dev(T), method=method, n_grid=scfg.grid_strikes,
+            svi_iters=scfg.lm_max_iters,
+            svi_butterfly_penalty=scfg.butterfly_penalty,
+            svi_weighting=scfg.svi_weighting,
             spline_bc=scfg.spline_bc, smoothing_lam=scfg.smoothing_lam,
             quote_mask=dev(quote_mask))
 

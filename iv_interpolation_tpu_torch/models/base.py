@@ -16,8 +16,8 @@ Consumers: ``pipeline.surface_task.run_surface_fit`` (method name ->
 :func:`get`) and ``cli.py --method`` (choices = :func:`available`). The
 module imports no torch, so the CLI can list methods without loading a
 backend; family modules import at :func:`get` time. The families that
-are not ported yet are listed with their ROADMAP item, and :func:`get`
-raises ``NotImplementedError`` naming it.
+are not ported yet (RBF, Andreasen-Huge) are listed with their ROADMAP
+item, and :func:`get` raises ``NotImplementedError`` naming it.
 """
 
 from __future__ import annotations
@@ -47,9 +47,12 @@ _FAMILIES = {
     "cubic_spline": ("iv_interpolation_tpu_torch.models.spline", "CUBIC_SPLINE"),
     "smoothing_spline": ("iv_interpolation_tpu_torch.models.spline",
                          "SMOOTHING_SPLINE"),
+    "svi": ("iv_interpolation_tpu_torch.models.svi", "SVI"),
+    "essvi": ("iv_interpolation_tpu_torch.models.essvi", "ESSVI"),
+    "sabr": ("iv_interpolation_tpu_torch.models.sabr", "SABR"),
 }
 # name -> the ROADMAP item that ports it
-NOT_PORTED = {"svi": "A5", "essvi": "A5", "sabr": "A5", "rbf": "A6", "ah": "A6"}
+NOT_PORTED = {"rbf": "A6", "ah": "A6"}
 
 
 def available() -> tuple:

@@ -28,7 +28,9 @@ from iv_interpolation_tpu_torch.ops.segment_ohlcv import (
     segment_reduce,
 )
 
-MAX_TILE = 8192   # buckets a block holds in shared memory; csrc kMaxTile
+MAX_TILE = 8192   # float32 buckets a block holds in shared memory; csrc kMaxTile
+MAX_TILE_F64 = 6144   # float64 buckets: 36 bytes each in the 227 KiB a block may hold
+_DTYPES = {torch.float32: "", torch.float64: "_f64"}   # value dtype -> symbol suffix
 _INT32 = (-2**31, 2**31 - 1)
 
 
@@ -42,19 +44,24 @@ class AggPlan(NamedTuple):
     smem: int
 
 
-def agg_plan(L: int, num_segments: int) -> AggPlan:
-    """The launch plan, by shape: one block a row holds all the row's
-    buckets (24 bytes each) in shared memory up to :data:`MAX_TILE`, so the
-    row is read once; beyond that the buckets split into tiles of
-    :data:`MAX_TILE` and each tile's block reads the row. A thread takes 4
-    ticks a pass, so a block has ceil(L / 4) threads rounded up to a power
-    of two, from 64 to 512."""
+def agg_plan(L: int, num_segments: int,
+             dtype: torch.dtype = torch.float32) -> AggPlan:
+    """The launch plan, by shape and value dtype: one block a row holds all
+    the row's buckets in shared memory (24 bytes each in float32, up to
+    :data:`MAX_TILE`; 36 bytes in float64, whose images and volume are 8
+    bytes wide, up to :data:`MAX_TILE_F64`), so the row is read once;
+    beyond that the buckets split into tiles of that size and each tile's
+    block reads the row. A thread takes 4 ticks a pass, so a block has
+    ceil(L / 4) threads rounded up to a power of two, from 64 to 512."""
     if L < 1 or num_segments < 1:
         raise ValueError(f"L and num_segments must be positive, got {L}, {num_segments}")
-    tile = min(num_segments, MAX_TILE)
+    if dtype not in _DTYPES:
+        raise TypeError(f"no aggregation kernel for {dtype} values")
+    wide = dtype == torch.float64
+    tile = min(num_segments, MAX_TILE_F64 if wide else MAX_TILE)
     tiles = -(-num_segments // tile)
     threads = min(512, max(64, 1 << (-(-L // 4) - 1).bit_length()))
-    return AggPlan(tile, tiles, threads, 24 * tile)
+    return AggPlan(tile, tiles, threads, (36 if wide else 24) * tile)
 
 
 def _check(minutes, o, h, l, c, v, valid, bucket_minutes, base_bucket,
@@ -102,15 +109,23 @@ def aggregate_ohlcv_cuda(minutes, o, h, l, c, v, valid, *, bucket_minutes: int,
     CPU tensors run :func:`aggregate_ohlcv_plain` in their own dtype.
     CUDA tensors launch the aggregation kernel, which takes int32 or int64
     minutes as they are (other integer types widen to int64) and float32
-    values only: other value dtypes raise (there is no float64 kernel).
-    Nothing reads the device on the host, so the call can be captured in
-    a CUDA graph. ``aggregate_ohlcv_cuda.launches`` counts kernel
-    launches. Volume from the kernel is a float32 sum in an order that
-    varies between runs (shared-memory atomics); every other output is a
-    selection or an integer and is exact.
+    or float64 values, all five of one dtype (mixed or other dtypes
+    raise); the outputs are in the values' dtype. Nothing reads the device
+    on the host, so the call can be captured in a CUDA graph.
+    ``aggregate_ohlcv_cuda.launches`` counts kernel launches and
+    ``aggregate_ohlcv_cuda.launches_by_dtype`` the same launches by the
+    values' dtype name (``"float32"``, ``"float64"``). Volume from the
+    kernel is a sum in the values' dtype in an order that varies between
+    runs (shared-memory atomics); every other output is a selection or an
+    integer and is exact.
     """
     _check(minutes, o, h, l, c, v, valid, bucket_minutes, base_bucket,
            num_segments)
+    values = (o, h, l, c, v)
+    dtype = o.dtype
+    if dtype not in _DTYPES or any(a.dtype != dtype for a in values):
+        raise TypeError("o, h, l, c and v must all be float32 or all float64: "
+                        f"{[a.dtype for a in values]}")
     device = minutes.device
     if device.type == "cpu":
         return aggregate_ohlcv_plain(
@@ -119,23 +134,19 @@ def aggregate_ohlcv_cuda(minutes, o, h, l, c, v, valid, *, bucket_minutes: int,
             min_count=min_count)
     if device.type != "cuda":
         raise ValueError(f"no kernel for device {device}")
-    values = (o, h, l, c, v)
-    if any(a.dtype != torch.float32 for a in values):
-        raise TypeError("the aggregation kernel takes float32 values on CUDA, "
-                        f"got {[a.dtype for a in values]}")
     if minutes.dtype not in (torch.int32, torch.int64):
         minutes = minutes.to(torch.int64)
     args = (minutes.contiguous(), *(a.contiguous() for a in values),
             valid.to(torch.bool).contiguous())
     B, L = minutes.shape
-    ohlcv = [torch.empty((B, num_segments), dtype=torch.float32, device=device)
+    ohlcv = [torch.empty((B, num_segments), dtype=dtype, device=device)
              for _ in range(5)]
     count = torch.empty((B, num_segments), dtype=torch.int32, device=device)
     ok = torch.empty((B, num_segments), dtype=torch.bool, device=device)
     if B > 0:
-        plan = agg_plan(L, num_segments)
-        lib = load_library()
-        fn = lib.ivt_stream_agg_i32 if minutes.dtype == torch.int32 else lib.ivt_stream_agg_i64
+        plan = agg_plan(L, num_segments, dtype)
+        width = "i32" if minutes.dtype == torch.int32 else "i64"
+        fn = getattr(load_library(), f"ivt_stream_agg_{width}{_DTYPES[dtype]}")
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = fn(*(a.data_ptr() for a in (*args, *ohlcv, count, ok)),
@@ -144,7 +155,9 @@ def aggregate_ohlcv_cuda(minutes, o, h, l, c, v, valid, *, bucket_minutes: int,
                      plan.tile, plan.threads, stream)
         check_launch(err, "stream_agg")
         aggregate_ohlcv_cuda.launches += 1
+        aggregate_ohlcv_cuda.launches_by_dtype[str(dtype)[6:]] += 1
     return Candles(*ohlcv, count=count, valid=ok)
 
 
 aggregate_ohlcv_cuda.launches = 0
+aggregate_ohlcv_cuda.launches_by_dtype = {"float32": 0, "float64": 0}

@@ -6,6 +6,9 @@ Tolerances:
 * registry names and the persisted keys: exact;
 * cubic and smoothing ``fit_eval`` in float64 (CPU tensors): grids and
   g within 1e-12 of max(1, |x|) of JAX's x64 results, flags exact;
+* svi, essvi and sabr ``fit_eval`` in float64, with the config's
+  ``lm_max_iters``, ``butterfly_penalty`` and ``svi_weighting`` passed
+  through: grids, g and fit_rmse within 1e-7 of max(1, |x|), flags exact;
 * parity mode: the float32 pair's float64 sum within 2e-9 of JAX's
   double-float32 pair and within 1e-9 of SciPy's float64 ``CubicSpline``
   on the same float32 inputs (the JAX suite's bound,
@@ -65,10 +68,11 @@ def _dev(a):
 def test_registry_names_and_unported_families():
     assert models.available() == ref_models.available()
     assert models.PERSIST_KEYS == ref_models.PERSIST_KEYS
-    for name in ("cubic_spline", "smoothing_spline"):
+    for name in ("cubic_spline", "smoothing_spline", "svi", "essvi", "sabr"):
         assert models.get(name).name == name
-    for name, item in (("svi", "A5"), ("essvi", "A5"), ("sabr", "A5"), ("rbf", "A6"),
-                       ("ah", "A6")):
+    for name in ("svi", "essvi", "sabr"):
+        assert models.get(name).description == ref_models.get(name).description
+    for name, item in (("rbf", "A6"), ("ah", "A6")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             models.get(name)
     with pytest.raises(ValueError, match="unknown smile method"):
@@ -88,6 +92,32 @@ def test_fit_eval_matches_jax(rng, method, bc):
                                    err_msg=key)
     for key in ("butterfly_ok", "calendar_ok"):
         np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+
+
+@pytest.mark.parametrize("method,surface", [
+    ("svi", {}), ("svi", {"butterfly_penalty": 10.0, "svi_weighting": "vega"}),
+    ("svi", {"lm_max_iters": 5}), ("essvi", {}), ("essvi", {"svi_weighting": "vega"}),
+    ("sabr", {}), ("sabr", {"lm_max_iters": 6})])
+def test_calibrated_families_fit_eval_matches_jax(rng, method, surface):
+    """``lm_max_iters``, ``butterfly_penalty`` and ``svi_weighting`` reach
+    the fit (a 5-iteration fit differs from a 24-iteration one in both
+    packages alike); ``svi_unroll`` is read by neither result."""
+    k, iv, T, mask = _batch(rng, B=3, E=4, n=13)
+    ref_scfg, scfg = _scfgs(**{"lm_max_iters": 24, "grid_strikes": 20, "svi_unroll": False,
+                               **surface})
+    got = models.get(method).fit_eval(k, iv, T, mask, scfg, dev=_dev)
+    want = ref_models.get(method).fit_eval(k, iv, T, mask, ref_scfg)
+    for key in ("k_grid", "w_grid", "iv_grid", "g", "fit_rmse"):
+        a, b = got[key].numpy(), np.asarray(want[key])
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-7 * max(1.0, np.abs(b).max()),
+                                   err_msg=key)
+    for key in ("butterfly_ok", "calendar_ok"):
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]), err_msg=key)
+    assert got["fit"].method == method
+    assert got["fit"].coefs.shape == (3, 4, {"svi": 5, "essvi": 3, "sabr": 4}[method])
+    scfg.svi_unroll = True
+    again = models.get(method).fit_eval(k, iv, T, mask, scfg, dev=_dev)
+    np.testing.assert_array_equal(again["w_grid"].numpy(), got["w_grid"].numpy())
 
 
 @pytest.mark.parametrize("case", ["clean", "nonuniform", "wiggle"])
@@ -142,7 +172,7 @@ def test_parity_mode_refuses_clamped_and_runs_b1_in_float64(rng, monkeypatch):
     assert seen == [torch.float64] and out["w_grid"].shape == (2, 3, 10)
 
 
-@pytest.mark.parametrize("method", ["cubic_spline", "smoothing_spline"])
+@pytest.mark.parametrize("method", ["cubic_spline", "smoothing_spline", "essvi"])
 def test_local_vol_and_density_nan_masks(rng, method):
     k, iv, T, mask = _batch(rng, wiggle=0.05)
     ref_scfg, scfg = _scfgs(spline_bc="not-a-knot", smoothing_lam=1e-4, grid_strikes=20)
@@ -156,7 +186,9 @@ def test_local_vol_and_density_nan_masks(rng, method):
         np.testing.assert_array_equal(np.isnan(a), np.isnan(b), err_msg=key)
         np.testing.assert_allclose(np.nan_to_num(a), np.nan_to_num(b), rtol=0,
                                    atol=1e-10 * max(1.0, np.nanmax(np.abs(b))), err_msg=key)
-    assert np.isnan(got["local_vol"].numpy()).any()
+    # the wiggled splines have cells to mask; eSSVI is arbitrage-free by
+    # construction and has none
+    assert np.isnan(got["local_vol"].numpy()).any() == (method != "essvi")
 
 
 def test_parity_mode_local_vol_takes_the_quote_maturities(rng):

@@ -17,6 +17,7 @@ import torch
 from iv_interpolation_tpu.ops.pallas.stream_agg_pallas import aggregate_ohlcv_pallas
 from iv_interpolation_tpu_torch.ops.cuda.stream_agg import (
     MAX_TILE,
+    MAX_TILE_F64,
     agg_plan,
     aggregate_ohlcv_cuda,
     aggregate_ohlcv_plain,
@@ -213,3 +214,54 @@ def test_int64_minutes_whose_ids_land_out_of_range_drop(rng):
                                 num_segments=40, min_count=1)
     assert int(got.count.sum()) == 0 and not got.valid.any()
     assert torch.isnan(got.open).all() and (got.volume == 0).all()
+
+
+def test_float64_values_pass_through_the_plain_version_in_float64(rng):
+    """float64 values (all five) stay float64: selections are the float32
+    run's values widened (exact), volume is the float64 sum to <= 1e-12
+    relative of the numpy float64 oracle; no launch on CPU tensors."""
+    ticks = _ticks(rng, 3, 300, -12, 210, sort=False)
+    wide = [ticks[0]] + [a.astype(np.float64) for a in ticks[1:6]] + [ticks[6]]
+    kw = dict(bucket_minutes=5, num_segments=40, min_count=2)
+    before = dict(aggregate_ohlcv_cuda.launches_by_dtype)
+    got = aggregate_ohlcv_cuda(*map(torch.from_numpy, wide), **kw)
+    ref = aggregate_ohlcv_cuda(*map(torch.from_numpy, ticks), **kw)
+    assert aggregate_ohlcv_cuda.launches_by_dtype == before
+    for f in ("open", "high", "low", "close", "volume"):
+        assert getattr(got, f).dtype == torch.float64
+    for f in ("open", "high", "low", "close"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(),
+                                      getattr(ref, f).numpy().astype(np.float64))
+    for f in ("count", "valid"):
+        np.testing.assert_array_equal(getattr(got, f).numpy(), getattr(ref, f).numpy())
+    vol64, _ = _oracle_volume(ticks[0], ticks[5], ticks[6], 5, 0, 40)
+    np.testing.assert_allclose(got.volume.numpy(), vol64, rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("which,dtype", [(1, np.float64), (5, np.float64),
+                                         (3, np.float16), (None, np.float16)])
+def test_mixed_or_unsupported_value_dtypes_raise(rng, which, dtype):
+    """o, h, l, c, v are all float32 or all float64, on any device."""
+    ticks = _ticks(rng, 2, 16, 0, 8)
+    for i in range(1, 6):
+        if which is None or i == which:
+            ticks[i] = ticks[i].astype(dtype)
+    with pytest.raises(TypeError, match="all be float32 or all float64"):
+        aggregate_ohlcv_cuda(*map(torch.from_numpy, ticks), bucket_minutes=1,
+                             num_segments=8, min_count=1)
+
+
+@pytest.mark.parametrize("L,ns,tiles", [
+    (16384, 3278, 1),              # candle stage: still one tile
+    (4096, 512, 1),
+    (300, MAX_TILE_F64, 1),        # the largest float64 single pass
+    (300, MAX_TILE_F64 + 1, 2),
+    (300, MAX_TILE, 2),
+])
+def test_launch_plan_float64_has_its_own_tile_cap(L, ns, tiles):
+    plan = agg_plan(L, ns, torch.float64)
+    assert plan.tiles == tiles and plan.threads == agg_plan(L, ns).threads
+    assert plan.tile == min(ns, MAX_TILE_F64) and plan.tiles * plan.tile >= ns
+    assert plan.smem == 36 * plan.tile <= 227 * 1024
+    with pytest.raises(TypeError):
+        agg_plan(L, ns, torch.float16)

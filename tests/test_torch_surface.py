@@ -1,11 +1,15 @@
-"""Port parity: surface fit/eval (cubic and smoothing spline paths) and
-the arbitrage diagnostics against the JAX package's ``surface/surface.py``
-and ``surface/arbitrage.py``.
+"""Port parity: surface fit/eval (the spline paths and the calibrated
+families svi, essvi and sabr) and the arbitrage diagnostics against the
+JAX package's ``surface/surface.py`` and ``surface/arbitrage.py``.
 
 Tolerances: float64 values agree to 1e-12 (Thomas against PCR in the
 curvature solve, otherwise the same arithmetic); the float32 run agrees
 to 256 ulps of the largest |w|. Flags agree exactly, and the float32
-common-support grid is bit-identical to the reference's.
+common-support grid is bit-identical to the reference's. The calibrated
+families in float64: ``w_grid``, ``g`` and ``fit_rmse`` within 1e-7 of
+their scale after the fit, flags equal; ``eval_surface``, ``_eval_slices``
+and ``_slice_g`` on the reference's own fitted parameters (carried across
+by ``surface_fit_from_numpy``, no fit in between) within 1e-12.
 """
 
 import jax
@@ -121,13 +125,94 @@ def test_eval_surface_matches_jax_on_converted_fit(rng, E):
         _close(got, want, np.float64)
 
 
+CALIBRATED = {
+    "svi": dict(),
+    "svi_hinge_vega": dict(svi_butterfly_penalty=10.0, svi_weighting="vega"),
+    "svi_huber": dict(svi_loss="huber", svi_huber_delta=5e-4),
+    "essvi": dict(),
+    "essvi_vega_huber": dict(svi_weighting="vega", svi_loss="huber"),
+    "sabr": dict(),
+}
+
+
+def _smiles(rng, B=3, E=4, n=15):
+    k = np.tile(np.linspace(-0.5, 0.5, n), (B, E, 1)) * rng.uniform(0.8, 1.2, (B, E, 1))
+    T = np.cumsum(rng.uniform(0.1, 0.5, (B, E)), -1)
+    iv = (0.2 + 0.1 * k * k - 0.05 * k + 0.02 * np.sqrt(T)[..., None]
+          + rng.normal(0, 1e-4, (B, E, n)))
+    return k, iv, T
+
+
+@pytest.mark.parametrize("case", list(CALIBRATED))
+def test_calibrated_fit_eval_surface_matches_jax(rng, case):
+    method = case.split("_")[0]
+    k, iv, T = _smiles(rng)
+    mask = np.ones(k.shape, bool)
+    mask[0, -1, 10:] = False
+    got, want = _run_both(k, iv, T, method=method, n_grid=20, svi_iters=24,
+                          quote_mask=mask, **CALIBRATED[case])
+    for key in KEYS:
+        a, b = got[key].numpy(), np.asarray(want[key])
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-7 * max(1.0, np.abs(b).max()),
+                                   err_msg=key)
+    for key in FLAGS:
+        np.testing.assert_array_equal(got[key].numpy(), np.asarray(want[key]))
+    assert got["fit"].method == method
+    np.testing.assert_allclose(got["fit"].coefs.numpy(), np.asarray(want["fit"].coefs),
+                               rtol=0, atol=1e-6 if method != "sabr" else 1e-5)
+    assert float(got["fit_rmse"].max()) < 2e-3
+    # svi_unroll keeps its place in the signature and changes nothing
+    again = port.fit_eval_surface(*map(torch.from_numpy, (k, iv, T)), method=method,
+                                  n_grid=20, svi_iters=24, svi_unroll=True,
+                                  quote_mask=torch.from_numpy(mask), **CALIBRATED[case])
+    np.testing.assert_array_equal(again["w_grid"].numpy(), got["w_grid"].numpy())
+
+
+@pytest.mark.parametrize("method", ["svi", "essvi", "sabr", "cubic_spline",
+                                    "smoothing_spline"])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_eval_paths_on_the_reference_fit_carried_across(rng, method, dtype):
+    """The reference's fitted ``SurfaceFit`` goes through
+    ``surface_fit_from_numpy``; ``eval_surface``, ``_eval_slices`` and
+    ``_slice_g`` are then held to the reference on its own parameters:
+    float64 within 1e-12 of scale, float32 within 256 ulps."""
+    k, iv, T = (a.astype(dtype) for a in _smiles(rng))
+    fit_ref = ref.fit_surface(*map(jnp.asarray, (k, iv, T)), method=method, svi_iters=16,
+                              smoothing_lam=1e-4)
+    fit_np = jax.tree.map(np.asarray, fit_ref)
+    fit = surface_fit_from_numpy(fit_np, device="cpu")
+    assert fit.method == method and fit.coefs.shape == fit_np.coefs.shape
+    assert fit.coefs.dtype == torch.from_numpy(k).dtype
+
+    def close(a, b):
+        b = np.asarray(b)
+        tol = 1e-12 if dtype == np.float64 else 256 * np.finfo(np.float32).eps
+        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=tol * max(1.0, np.abs(b).max()))
+
+    k_grid = np.asarray(ref.common_support_grid(jnp.asarray(k), 20))
+    tg = torch.from_numpy(k_grid)
+    w_grid = port._eval_slices(fit, tg)
+    w_ref = ref._eval_slices(fit_ref, jnp.asarray(k_grid))
+    close(w_grid, w_ref)
+    close(port._slice_g(fit, tg, torch.from_numpy(np.asarray(w_ref))),
+          ref._slice_g(fit_ref, jnp.asarray(k_grid), w_ref))
+    B, Q = k.shape[0], 40
+    k_q = rng.uniform(-0.45, 0.45, (B, Q)).astype(dtype)
+    T_q = rng.uniform(0.0, 2.5, (B, Q)).astype(dtype)   # also outside the expiry range
+    close(port.eval_surface(fit, torch.from_numpy(k_q), torch.from_numpy(T_q)),
+          ref.eval_surface(fit_ref, jnp.asarray(k_q), jnp.asarray(T_q)))
+
+
 def test_unported_methods_name_their_roadmap_item(rng):
     k, iv, T = map(torch.from_numpy, _chains(rng))
-    for method in ("svi", "essvi", "sabr"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            port.fit_eval_surface(k, iv, T, method=method)
-    with pytest.raises(ValueError):
-        port.fit_surface(k, iv, T, method="linear")
+    # rbf and ah are no slice-wise methods: the registry refuses them by
+    # name (tests/test_torch_models.py); here they are unknown, as in the
+    # reference
+    for method in ("rbf", "ah", "linear"):
+        with pytest.raises(ValueError, match="unknown smile method"):
+            port.fit_surface(k, iv, T, method=method)
+    with pytest.raises(ValueError, match="unknown smile method"):
+        port.eval_surface(port.SurfaceFit("rbf", k, T, k, k), k[:, 0], k[:, 0])
     # the smoothing spline is ported (test_smoothing_spline_surface_matches_jax)
     assert port.fit_eval_surface(k, iv, T, method="smoothing_spline")["w_grid"].shape[-1] == 50
 
