@@ -5,6 +5,10 @@ The operator surface of the JAX package's ``iv-tpu``, on one card:
   --task {interpolation,bridge,candles,both,pipeline,all,surface,stream,serve}
   --method / --parity  the surface family and parity mode of --task surface
   --serve-port / --serve-transport {jsonl,flight}  --task serve
+  --validate-only   readiness report (device, tables), exit 1 if not ready
+  --estimate        task-1 time estimate from a timed calibration batch
+  --profile         wrap the run in a torch.profiler trace written to
+                    monitoring.profiler_dir (so does monitoring.enable_profiler)
   --test            3-symbol smoke run
   --resume BATCH_ID re-enqueue pending/error symbols
   --generate-sample-candles / --generate-sample-tickers, --symbols N
@@ -15,11 +19,9 @@ The operator surface of the JAX package's ``iv-tpu``, on one card:
                     default) unless ``--device cpu`` is given
 
 Run as ``iv-tpu-torch ...`` or ``python -m iv_interpolation_tpu_torch.cli``.
-The JAX CLI's flags that are not ported yet, the surface families that
-are not (``--method rbf|ah``) and the config knobs that would need an
-unported feature (``monitoring.enable_profiler``, the postgres backend)
-are accepted by the parser or the config and refused with exit code 2
-and the ROADMAP item that will bring them; none is ignored.
+The JAX CLI's flags that are not ported yet and the postgres backend are
+accepted by the parser or the config and refused with exit code 2 and the
+ROADMAP item that will bring them; none is ignored.
 """
 
 from __future__ import annotations
@@ -36,12 +38,9 @@ from iv_interpolation_tpu_torch import models
 # port refuses
 _VIEW = "visualize.py and the live monitor"
 _PG = "PostgresStore, pgwire.py and schema.py"
-_VALIDATE = "validate.py and --profile"
 NOT_PORTED = {
     "monitor": _VIEW, "with_monitor": _VIEW, "visualize": _VIEW,
-    "plot_dir": _VIEW, "plot_symbol": _VIEW,
-    "check_db": _PG, "profile": _VALIDATE, "validate_only": _VALIDATE,
-    "estimate": _VALIDATE,
+    "plot_dir": _VIEW, "plot_symbol": _VIEW, "check_db": _PG,
 }
 
 
@@ -71,8 +70,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="limit number of symbols processed")
     p.add_argument("--method", default=None, choices=list(models.available()),
                    help="smile/surface family for --task surface "
-                        "(default: config surface.smile_method; rbf and "
-                        "ah are not ported yet)")
+                        "(default: config surface.smile_method)")
     p.add_argument("--parity", action="store_true",
                    help="float64 cubic-spline surface fits: the persisted "
                         "(total_variance, total_variance_lo) pair matches "
@@ -115,9 +113,16 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve-transport", choices=["jsonl", "flight"], default="jsonl",
                    help="serving wire protocol: newline-delimited JSON or "
                         "Arrow Flight (gRPC, columnar; needs pyarrow with Flight)")
+    p.add_argument("--validate-only", action="store_true",
+                   help="check device and input tables, print a readiness "
+                        "report, exit 1 if not ready")
+    p.add_argument("--estimate", action="store_true",
+                   help="estimate a full task-1 run from a timed calibration batch")
+    p.add_argument("--profile", action="store_true",
+                   help="write a torch.profiler trace of the run to "
+                        "monitoring.profiler_dir")
     # the JAX CLI's flags that are not ported yet (see NOT_PORTED)
-    for flag in ("--monitor", "--with-monitor", "--visualize",
-                 "--check-db", "--profile", "--validate-only", "--estimate"):
+    for flag in ("--monitor", "--with-monitor", "--visualize", "--check-db"):
         p.add_argument(flag, action="store_true", help=argparse.SUPPRESS)
     p.add_argument("--plot-dir", default=None, help=argparse.SUPPRESS)
     p.add_argument("--plot-symbol", default=None, help=argparse.SUPPRESS)
@@ -165,8 +170,6 @@ def main(argv=None) -> int:
     for dest, item in NOT_PORTED.items():
         if getattr(args, dest) not in (None, False):
             return _refuse(f"--{dest.replace('_', '-')}", item)
-    if args.method in models.base.NOT_PORTED:
-        return _refuse(f"--method {args.method}", models.base.NOT_PORTED[args.method])
 
     if args.init_env:
         root = args.data_root or "."
@@ -196,8 +199,6 @@ def main(argv=None) -> int:
         config.surface.compensated = True
     if config.storage.backend == "postgres":
         return _refuse("storage backend 'postgres'", _PG)
-    if config.monitoring.enable_profiler:
-        return _refuse("monitoring.enable_profiler", _VALIDATE)
     if args.shard:
         try:
             i_s, n_s = args.shard.split("/")
@@ -228,6 +229,15 @@ def main(argv=None) -> int:
             if not batches:
                 print("  (no batches)")
         return 0
+
+    if args.validate_only:
+        # before the runner, which raises where the device cannot be
+        # reached: that is a readiness report's finding
+        from iv_interpolation_tpu_torch.pipeline.validate import validate_readiness
+        report = validate_readiness(config, st.get_store(config.storage), task=args.task,
+                                    device=args.device)
+        _emit(args, report, "readiness report")
+        return 0 if report["ready"] else 1
 
     runner = PipelineRunner(config, device=args.device)
     runner.install_signal_handler()
@@ -274,11 +284,25 @@ def main(argv=None) -> int:
                   "sample candles generated")
         return 0
 
+    if args.estimate:
+        from iv_interpolation_tpu_torch.pipeline.validate import estimate_processing
+        _emit(args, estimate_processing(config, runner.store, device=runner.device),
+              "processing estimate")
+        return 0
+
+    from contextlib import nullcontext
+
+    from iv_interpolation_tpu_torch.monitoring.metrics import profile_trace
+
     limit = 3 if args.test else args.symbols
+    profiling = args.profile or config.monitoring.enable_profiler
     t0 = time.time()
-    out = _dispatch(args, runner, limit)
+    with profile_trace(config.monitoring.profiler_dir) if profiling else nullcontext():
+        out = _dispatch(args, runner, limit)
     out["wall_s"] = round(time.time() - t0, 3)
     out["status"] = runner.status()
+    if profiling:
+        out["profile_dir"] = config.monitoring.profiler_dir
     _emit(args, out, f"task={args.task} complete")
     return 0
 

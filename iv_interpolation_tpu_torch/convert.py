@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from iv_interpolation_tpu_torch.config import Config
+from iv_interpolation_tpu_torch.ops.andreasen_huge import AHFit
 from iv_interpolation_tpu_torch.ops.spline_matrix import SplineOperator
 from iv_interpolation_tpu_torch.pipeline.ringbuffer import RingState
 from iv_interpolation_tpu_torch.surface.surface import SurfaceFit
@@ -46,6 +47,19 @@ def surface_fit_from_numpy(fit, device: torch.device | str = "cuda") -> SurfaceF
     return SurfaceFit(method=fit.method,
                       **{f: _tensor(getattr(fit, f), device)
                          for f in ("k", "expiries", "w", "coefs")})
+
+
+def ah_fit_from_numpy(fit, device: torch.device | str = "cuda") -> AHFit:
+    """``ops.andreasen_huge.AHFit`` (numpy fields) -> the port's, which
+    ``ops.andreasen_huge.eval_ah`` evaluates."""
+    return AHFit(*(_tensor(getattr(fit, f), device) for f in AHFit._fields))
+
+
+def rbf_fit_from_numpy(fit: dict, device: torch.device | str = "cuda") -> dict:
+    """A fit dict of ``ops.rbf.fit_rbf`` or ``fit_rbf_arbfree`` (numpy
+    values) -> the port's, which ``ops.rbf.eval_rbf`` evaluates: every
+    array becomes a tensor, the scalar flags included."""
+    return {key: _tensor(value, device) for key, value in fit.items()}
 
 
 def prng_key_from_numpy(key_data, device: torch.device | str = "cuda") -> torch.Tensor:

@@ -15,9 +15,7 @@ its family-specific logic:
 Consumers: ``pipeline.surface_task.run_surface_fit`` (method name ->
 :func:`get`) and ``cli.py --method`` (choices = :func:`available`). The
 module imports no torch, so the CLI can list methods without loading a
-backend; family modules import at :func:`get` time. The families that
-are not ported yet (RBF, Andreasen-Huge) are listed with their ROADMAP
-item, and :func:`get` raises ``NotImplementedError`` naming it.
+backend; family modules import at :func:`get` time.
 """
 
 from __future__ import annotations
@@ -42,7 +40,7 @@ class SurfaceModel:
     description: str = ""
 
 
-# name -> (module, attribute) of the ported families
+# name -> (module, attribute) of every family
 _FAMILIES = {
     "cubic_spline": ("iv_interpolation_tpu_torch.models.spline", "CUBIC_SPLINE"),
     "smoothing_spline": ("iv_interpolation_tpu_torch.models.spline",
@@ -50,22 +48,19 @@ _FAMILIES = {
     "svi": ("iv_interpolation_tpu_torch.models.svi", "SVI"),
     "essvi": ("iv_interpolation_tpu_torch.models.essvi", "ESSVI"),
     "sabr": ("iv_interpolation_tpu_torch.models.sabr", "SABR"),
+    "rbf": ("iv_interpolation_tpu_torch.models.rbf", "RBF"),
+    "ah": ("iv_interpolation_tpu_torch.models.andreasen_huge", "AH"),
 }
-# name -> the ROADMAP item that ports it
-NOT_PORTED = {"rbf": "A6", "ah": "A6"}
 
 
 def available() -> tuple:
-    """Every family name of the JAX package, in its order (CLI --method
+    """Every family name, in the JAX package's order (CLI --method
     choices)."""
-    return tuple(_FAMILIES) + tuple(NOT_PORTED)
+    return tuple(_FAMILIES)
 
 
 def get(name: str) -> SurfaceModel:
     """Resolve a family by name (imports the family module)."""
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"smile method {name!r} is not ported yet (ROADMAP {NOT_PORTED[name]})")
     try:
         module, attr = _FAMILIES[name]
     except KeyError:

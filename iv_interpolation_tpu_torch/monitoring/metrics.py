@@ -1,8 +1,9 @@
-"""Step metrics: wall-clock spans, rows per second and device memory
-(port of ``iv_interpolation_tpu/monitoring/metrics.py``).
+"""Step metrics: wall-clock spans, rows per second, device memory and a
+profiler trace (port of ``iv_interpolation_tpu/monitoring/metrics.py``).
 
 The device memory comes from PyTorch's CUDA caching allocator instead of
-``jax``; JSON snapshots keep the JAX package's layout.
+``jax``; JSON snapshots keep the JAX package's layout; the trace is a
+``torch.profiler`` trace instead of ``jax.profiler``'s.
 """
 
 from __future__ import annotations
@@ -94,3 +95,26 @@ class StepMetrics:
         with open(path, "w") as f:
             json.dump(payload, f, indent=2)
         return path
+
+
+@contextmanager
+def profile_trace(profiler_dir: Optional[str]):
+    """A ``torch.profiler`` trace of the host and, where a card is
+    visible, its kernels around a region, written as a Chrome trace
+    (``trace_<pid>_<ms>.json``) into ``profiler_dir``; no-op without a
+    directory."""
+    if not profiler_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profiler_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(
+        profiler_dir, f"trace_{os.getpid()}_{int(time.time() * 1e3)}.json"))

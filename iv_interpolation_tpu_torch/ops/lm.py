@@ -9,7 +9,9 @@ Built for SVI smile calibration (5 parameters x thousands of slices, see
     straight-line program, nothing reads the device on the host (no
     ``.item()``, no early exit), so a fit can be captured in a CUDA graph;
   * Jacobians by ``torch.func.jacfwd`` under ``torch.func.vmap`` (forward
-    mode: few parameters, many residuals);
+    mode: few parameters, many residuals), or from a caller's batched
+    ``linearize`` where the residual cannot run under ``torch.func``
+    (Andreasen-Huge: its step solve is a kernel launched on raw pointers);
   * normal equations with Marquardt diagonal scaling, solved by Cholesky
     on (P, P) systems. ``J^T J`` plus positive damping is symmetric
     positive definite by construction. If rounding or a non-finite
@@ -72,7 +74,8 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def levenberg_marquardt_batched(residual_fn: Callable, params0: torch.Tensor, *args,
                                 max_iters: int = 50, lambda0: float = 1e-3,
-                                tol: float = 1e-12, lower=None, upper=None) -> LMResult:
+                                tol: float = 1e-12, lower=None, upper=None,
+                                linearize: Callable | None = None) -> LMResult:
     """Minimise ``0.5 * ||residual_fn(p, *args)||^2`` for a batch of
     problems: ``params0`` (B, P) and every tensor of ``args`` carry the
     batch on axis 0.
@@ -80,8 +83,12 @@ def levenberg_marquardt_batched(residual_fn: Callable, params0: torch.Tensor, *a
     Args:
       residual_fn: one problem's (P,) params, *args -> (M,) residuals,
         written with functional tensor operations (it runs under
-        ``torch.func.vmap`` and ``jacfwd``).
+        ``torch.func.vmap`` and ``jacfwd``). With ``linearize`` it is
+        batched instead: (B, P) params, *args -> (B, M).
       lower/upper: optional (P,) box constraints, applied by projection.
+      linearize: optional batched (B, P) params, *args -> ((B, M)
+        residuals, (B, M, P) Jacobian), used in place of mapping
+        ``jacfwd`` over ``residual_fn``.
     """
     dtype, device = params0.dtype, params0.device
     lo = None if lower is None else torch.as_tensor(lower, device=device).to(dtype)
@@ -92,8 +99,12 @@ def levenberg_marquardt_batched(residual_fn: Callable, params0: torch.Tensor, *a
             return p
         return torch.clamp(p, lo, hi)
 
-    residuals = vmap(residual_fn)
-    jacobians = vmap(jacfwd(residual_fn))
+    if linearize is None:
+        residuals = vmap(residual_fn)
+        jacobians = vmap(jacfwd(residual_fn))
+        linearize = lambda p, *a: (residuals(p, *a), jacobians(p, *a))
+    else:
+        residuals = residual_fn
 
     def cost_of(p):
         r = residuals(p, *args)
@@ -106,8 +117,7 @@ def levenberg_marquardt_batched(residual_fn: Callable, params0: torch.Tensor, *a
              torch.zeros((B,), dtype=torch.bool, device=device))
     for _ in range(max_iters):
         p, lam, cost = state[:3]
-        r = residuals(p, *args)                          # (B, M)
-        J = jacobians(p, *args)                          # (B, M, P)
+        r, J = linearize(p, *args)                       # (B, M), (B, M, P)
         g = torch.einsum("bmp,bm->bp", J, r)             # gradient
         JtJ = torch.einsum("bmp,bmq->bpq", J, J)
         diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)

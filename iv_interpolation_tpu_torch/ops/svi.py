@@ -51,6 +51,13 @@ def linspace_last(start: torch.Tensor, stop: torch.Tensor, num: int) -> torch.Te
     return torch.cat([body, stop[..., None]], dim=-1)
 
 
+def unit_steps(num: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The reference's ``jnp.linspace(0.0, 1.0, num).astype(dtype)``: i/(num-1)
+    in float64 (exactly what its formula gives for these ends), cast to
+    ``dtype``; ``num=1`` gives [0]."""
+    return (torch.arange(num, dtype=torch.float64, device=device) / max(num - 1, 1)).to(dtype)
+
+
 def svi_total_variance(params: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     """w(k) for raw-SVI ``params`` = (..., 5) against ``k`` = (..., n)."""
     a, b, rho, m, sigma = (params[..., i:i + 1] for i in range(5))

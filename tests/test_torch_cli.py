@@ -3,8 +3,10 @@ against the JAX package's ``iv-tpu``: the same JSON keys for the same
 task, the staged job and the audits on a parquet store, ``--task stream``
 on ``run_stream_replay`` with the port's config, ``--task surface``
 (``--method``, ``--parity``) against the JAX CLI's surface table, ``--task
-serve`` over both transports, and every flag, family or config knob that
-is not ported refused with exit code 2. CPU runs pass ``--device cpu``.
+serve`` over both transports, ``--validate-only``, ``--estimate`` and
+``--profile`` (or ``monitoring.enable_profiler``) with the JAX CLI's keys,
+and every flag that is not ported refused with exit code 2. CPU runs pass
+``--device cpu``.
 """
 
 import json
@@ -95,14 +97,29 @@ def test_stream_task_runs_the_replay_with_the_port_config(in_tmp, capsys):
 
 
 @pytest.mark.parametrize("args", [
-    ["--task", "surface", "--method", "rbf"], ["--task", "serve", "--method", "ah"],
     ["--monitor"], ["--with-monitor"], ["--visualize"], ["--plot-dir", "p"],
-    ["--plot-symbol", "s"], ["--check-db"], ["--profile"], ["--validate-only"],
-    ["--estimate"], ["--method", "rbf"], ["--task", "surface", "--monitor"],
+    ["--plot-symbol", "s"], ["--check-db"], ["--task", "surface", "--monitor"],
     ["--storage", "postgres"]])
 def test_unported_tasks_and_flags_exit_2(in_tmp, capsys, args):
     assert cli.main(args + ["--device", "cpu"]) == 2
     assert "not ported yet (ROADMAP" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("args,rc,keys", [
+    (["--task", "surface", "--method", "rbf"], 0, {"surface", "wall_s", "status"}),
+    (["--task", "surface", "--method", "ah"], 0, {"surface", "wall_s", "status"}),
+    (["--method", "rbf"], 0, {"task1", "bridge", "task2", "wall_s", "status"}),
+    (["--validate-only", "--task", "interpolation"], 1, {"ready", "task", "checks"}),
+    (["--estimate"], 0, {"input_rows", "symbols", "estimated_output_rows",
+                         "measured_grid_points_per_s", "estimated_seconds",
+                         "estimated_minutes"}),
+])
+def test_flags_and_families_that_run(in_tmp, capsys, args, rc, keys):
+    """What the port refused before it had the families and validate.py:
+    each runs on an empty memory store with the JAX CLI's keys (an empty
+    store is not ready for task 1)."""
+    assert cli.main(args + ["--storage", "memory", "--device", "cpu", "--json"]) == rc
+    assert keys <= set(_json_lines(capsys)[-1])
 
 
 def test_bad_shard_and_init_env(in_tmp, capsys):
@@ -113,33 +130,47 @@ def test_bad_shard_and_init_env(in_tmp, capsys):
     assert cli.main(["--init-env", "--data-root", str(in_tmp / "d")]) == 1
 
 
-def test_profiler_knob_is_refused_not_ignored(in_tmp, capsys, monkeypatch):
-    """``monitoring.enable_profiler=true`` would need the unported profile
-    trace: the CLI exits 2 naming its ROADMAP item before any work."""
-    monkeypatch.setenv("IVTPU_MONITORING__ENABLE_PROFILER", "true")
+@pytest.mark.parametrize("how", ["--profile", "monitoring.enable_profiler"])
+def test_profile_writes_a_torch_profiler_trace(in_tmp, capsys, monkeypatch, how):
+    """``--profile`` or ``IVTPU_MONITORING__ENABLE_PROFILER=true`` wraps
+    the run in a ``torch.profiler`` trace written to
+    ``monitoring.profiler_dir``, and the JSON reports ``profile_dir`` as
+    the JAX CLI's does."""
+    prof = in_tmp / "prof"
+    monkeypatch.setenv("IVTPU_MONITORING__PROFILER_DIR", str(prof))
     argv = ["--task", "pipeline", "--storage", "memory", "--test", "--json", "--device", "cpu"]
-    assert cli.main(argv) == 2
-    out = capsys.readouterr()
-    assert ("monitoring.enable_profiler is not ported yet "
-            "(ROADMAP: validate.py and --profile)") in out.err
-    assert out.out == ""
-    monkeypatch.setenv("IVTPU_MONITORING__ENABLE_PROFILER", "false")
+    if how == "--profile":
+        argv.append("--profile")
+    else:
+        monkeypatch.setenv("IVTPU_MONITORING__ENABLE_PROFILER", "true")
     assert cli.main(argv) == 0
+    out = _json_lines(capsys)[-1]
+    assert out["profile_dir"] == str(prof)
+    traces = list(prof.glob("trace_*.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
+    assert "traceEvents" in json.loads(traces[0].read_text())
 
 
 def test_unported_family_names_its_roadmap_item(in_tmp, capsys):
-    for method, item in (("rbf", "A6"), ("ah", "A6")):
-        assert cli.main(["--task", "surface", "--method", method, "--device", "cpu"]) == 2
-        assert f"--method {method} is not ported yet (ROADMAP: {item})" in capsys.readouterr().err
+    """Every family of ``--method`` is ported: rbf and ah run (an empty
+    store has no data to fit); a name outside the families is an
+    argparse error."""
+    for method in ("rbf", "ah"):
+        assert cli.main(["--task", "surface", "--method", method, "--storage", "memory",
+                         "--device", "cpu", "--json"]) == 0
+        assert _json_lines(capsys)[-1]["surface"]["reason"] == "no interpolated data"
     with pytest.raises(SystemExit):
         cli.main(["--method", "nonsense"])
 
 
-def test_surface_task_matches_the_jax_cli(in_tmp, capsys):
-    """``--task surface`` with each ported family (the calibrated ones
-    included: the summaries hold flags and counts) and ``--parity`` on the
-    same parquet store as the JAX CLI: the same summaries and the same
-    check audit keys. The stores are filled by each package's task 1."""
+def test_surface_task_matches_the_jax_cli(in_tmp, capsys, monkeypatch):
+    """``--task surface`` with each family (the summaries hold flags and
+    counts; ah on a 65-point grid with 6 iterations, both packages) and
+    ``--parity`` on the same parquet store as the JAX CLI: the same
+    summaries and the same check audit keys. The stores are filled by each
+    package's task 1."""
+    monkeypatch.setenv("IVTPU_SURFACE__AH_GRID", "65")
+    monkeypatch.setenv("IVTPU_SURFACE__AH_ITERS", "6")
     cache = jax.config.jax_compilation_cache_dir
     outs = {}
     try:
@@ -154,7 +185,13 @@ def test_surface_task_matches_the_jax_cli(in_tmp, capsys):
                 assert main(base + ["--task", "surface"] + extra) == 0
                 runs.append(_json_lines(capsys)[-1])
             assert main(base + ["--check"]) == 0
-            outs[name] = runs, _json_lines(capsys)[-1]
+            audit = _json_lines(capsys)[-1]
+            # after the audit: AH's Black-inverted wings hold iv 0, which
+            # the audit's iv range flags in both packages
+            for method in ("ah", "rbf"):
+                assert main(base + ["--task", "surface", "--method", method]) == 0
+                runs.append(_json_lines(capsys)[-1])
+            outs[name] = runs, audit
     finally:
         jax.config.update("jax_compilation_cache_dir", cache)
     (got, got_audit), (want, want_audit) = outs["port"], outs["jax"]

@@ -195,6 +195,50 @@ def test_calibrated_families_tables_match_jax(interpolated, method, surface, dty
                 (c, float(np.abs(x - y).max()))
 
 
+@pytest.mark.parametrize("method,surface", [
+    ("ah", {"ah_grid": 65, "ah_iters": 6}),
+    ("ah", {"ah_grid": 65, "ah_iters": 6, "compute_local_vol": True, "ah_max_batch": 1}),
+    ("rbf", {}),
+    ("rbf", {"compute_local_vol": True, "rbf_butterfly_penalty": 100.0,
+             "rbf_calendar_penalty": 100.0, "rbf_penalty_iters": 4, "rbf_centers": 16}),
+])
+def test_ah_and_rbf_tables_match_jax(interpolated, method, surface):
+    """``run_surface_fit`` with Andreasen-Huge (chunked by
+    ``ah_max_batch`` or not) and RBF (direct, and penalized on a reduced
+    basis) in float64 on the same store: the same summary, flags and NaN
+    masks equal, fit_rmse within 1e-10, local vol and density within 1e-7
+    of their scale. AH's total variance is Black-inverted from prices and
+    is held in price space (normalized calls within 1e-10); RBF's within
+    1e-7 of scale (its direct saddle systems here carry the padded expiry
+    slots 1e-3 apart in T)."""
+    from iv_interpolation_tpu_torch.ops.andreasen_huge import normalized_call
+
+    ref_cfg, cfg = _configs(smile_method=method, **surface)
+    ref_store, store = _stores(interpolated)
+    want = ref_task.run_surface_fit(ref_cfg, ref_store)
+    got = task.run_surface_fit(cfg, store, device="cpu")
+    assert got == want and got["method"] == method and got["surfaces"] == 2
+    a, b = _sorted(store.read(task.SURFACES)), _sorted(ref_store.read(ref_task.SURFACES))
+    assert list(a.columns) == list(b.columns) and len(a) == len(b)
+    for c in b.columns:
+        x, y = a[c].to_numpy(), b[c].to_numpy()
+        if c in ("underlying", "butterfly_ok", "calendar_ok"):
+            np.testing.assert_array_equal(x, y, err_msg=c)
+            continue
+        assert x.dtype == y.dtype, (c, x.dtype, y.dtype)
+        np.testing.assert_array_equal(np.isnan(x), np.isnan(y), err_msg=c)
+        x, y = np.nan_to_num(x), np.nan_to_num(y)
+        if method == "ah" and c in ("total_variance", "iv"):
+            if c == "iv":
+                continue
+            k = torch.from_numpy(b["log_moneyness"].to_numpy())
+            x, y = (normalized_call(k, torch.from_numpy(v)).numpy() for v in (x, y))
+            tol = 1e-10
+        else:
+            tol = {"fit_rmse": 1e-10}.get(c, 1e-7) * max(1.0, np.abs(y).max())
+        assert (np.abs(x - y) <= tol).all(), (c, float(np.abs(x - y).max()))
+
+
 def test_limit_and_float32_processing(interpolated):
     """``limit`` cuts the chains; float32 processing gives float32 grids."""
     ref_cfg, cfg = _configs()
@@ -308,24 +352,22 @@ def test_pack_chain_group_matches_jax(interpolated):
 
 
 def test_ah_chunking_and_refusals(interpolated, monkeypatch):
-    """``surface.ah_max_batch`` chunks an 'ah' run's buckets (a stand-in
-    family records the batch sizes: AH itself is not ported); a negative
-    cap is refused (ROADMAP C4); an unported family and a mesh of more
-    than one device raise before the store is read."""
+    """``surface.ah_max_batch`` chunks an 'ah' run's buckets (a wrapper
+    of the AH family records the batch sizes) into the same table; a
+    negative cap is refused (ROADMAP C4); a mesh of more than one device
+    raises before the store is read."""
     seen = []
-    cubic = models.get("cubic_spline")
+    get_model = models.get
 
     def get(name):
-        if name != "ah":
-            return cubic
+        model = get_model(name)
+        fit_eval = model.fit_eval
         return models.SurfaceModel(
-            name="ah", attach_local_vol=cubic.attach_local_vol,
-            fit_eval=lambda k, *a, **kw: seen.append(k.shape[0]) or cubic.fit_eval(k, *a, **kw))
+            name=name, attach_local_vol=model.attach_local_vol,
+            fit_eval=lambda k, *a, **kw: seen.append(k.shape[0]) or fit_eval(k, *a, **kw))
 
-    _, cfg = _configs()
+    _, cfg = _configs(ah_grid=33, ah_iters=3)
     _, store = _stores(interpolated)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        task.run_surface_fit(cfg, store, method="ah", device="cpu")
     monkeypatch.setattr(models, "get", get)
     cfg.surface.ah_max_batch = 1
     assert task.run_surface_fit(cfg, store, method="ah", device="cpu")["surfaces"] == 2
@@ -335,7 +377,8 @@ def test_ah_chunking_and_refusals(interpolated, monkeypatch):
     cfg.surface.ah_max_batch = None
     task.run_surface_fit(cfg, store, method="ah", device="cpu")
     assert seen == [2]
-    pd.testing.assert_frame_equal(chunked, _sorted(store.read(task.SURFACES)))
+    pd.testing.assert_frame_equal(chunked, _sorted(store.read(task.SURFACES)),
+                                  check_exact=False, rtol=0, atol=1e-12)
     cfg.surface.ah_max_batch = -1
     with pytest.raises(ValueError, match="ah_max_batch"):
         task.run_surface_fit(cfg, store, method="ah", device="cpu")
@@ -358,7 +401,8 @@ def test_empty_store_and_no_chains():
 def test_surface_and_serve_import_nothing_of_jax(tmp_path):
     """In a process where ``jax`` and ``iv_interpolation_tpu`` cannot be
     imported, ``run_surface_fit`` runs on CPU tensors from a store the
-    port's runner filled, and a JSONL serve round trip answers."""
+    port's runner filled (with the splines, ah and rbf), readiness
+    validates, and a JSONL serve round trip answers."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -375,6 +419,12 @@ def test_surface_and_serve_import_nothing_of_jax(tmp_path):
         "runner.PipelineRunner(cfg, store=store, device='cpu').run_task1()\n"
         "rep = surface_task.run_surface_fit(cfg, store, device='cpu')\n"
         "assert rep['surfaces'] == 1 and check_results.check_surface_results(store)['ok'], rep\n"
+        "cfg.surface.ah_grid, cfg.surface.ah_iters = 33, 3\n"
+        "for method in ('ah', 'rbf'):\n"
+        "    rep = surface_task.run_surface_fit(cfg, store, method=method, device='cpu')\n"
+        "    assert rep['surfaces'] == 1 and rep['butterfly_ok'] == 1, rep\n"
+        "from iv_interpolation_tpu_torch.pipeline import validate\n"
+        "assert validate.validate_readiness(cfg, store, device='cpu')['ready']\n"
         "srv = serve.run_serve(cfg, store, port=0, blocking=False, device='cpu')\n"
         "try:\n"
         "    ticks = [{'underlying': 'btc', 'minute': m, 'price': 100.0 + m % 7, 'size': 1.0}\n"
