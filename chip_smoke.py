@@ -107,14 +107,40 @@ Phases:
      frame and never touches the card (not among ``nvidia-smi``'s compute
      processes, no CUDA driver mapped), then ``--monitor``; (e)
      ``--visualize`` over phase 7's store (local vol) and (c)'s run; (f) a
-     ``SurfaceFit`` checkpoint restored to the card and to the CPU.
+     ``SurfaceFit`` checkpoint restored to the card and to the CPU;
+ 12. the device mesh (``parallel/mesh.py`` over ``torch.distributed``
+     ranks): (a) a world of one rank over NCCL in this process (file
+     rendezvous): ``sharded_masked_interp``'s local form and all-gather on a
+     (1, 1) mesh at 128 series x 4 columns x 2^19 minutes, about 80 %
+     missing, gaps across the chunk seam, equal to ``masked_interp`` bit
+     for bit, fill and all-gather timed by CUDA events; (b) one launched
+     world of two ranks sharing the card over gloo, each rank with its
+     launch counts: the same timeline at 2^18 minutes a rank (its chunk
+     equal to ``masked_interp``'s, the gathered whole to (a)'s); the fused
+     runner at 1,024 symbols x 168 hourly rows, 256 a batch, on a parquet
+     store with mesh (2,) (tables equal to a one-rank run's, every column
+     exact but the 5-minute volume within 8 eps32; B2 once a batch on
+     each rank; rows/s, host seconds by phase, each rank's peak); phase
+     7's store through ``run_surface_fit`` with cubic_spline (exact) and
+     ah (phase 10's tolerance), B1 by rank and dtype; a ``StreamingSession``
+     of STREAM's universe for 7 refits (flags exact, grids within phase
+     4's tolerance, B2 twice a refit on each rank); the dry run's proofs
+     2-3; (c) the CLI under ``torch.distributed.run --standalone
+     --nproc-per-node 2``: ``--task pipeline`` with
+     ``IVTPU_PROCESSING__MESH_SHAPE=2`` (exit 0, one JSON summary, the
+     one-rank run's tables) and ``--task serve`` over phase 7's store
+     (a client's ticks, refit, stats and stop). Two ranks on one card
+     measure correctness and overhead, not scaling.
 
 ``--phases 2,9`` (development only) runs the named phases after the
-build and prints no result line.
+build and prints no result line. ``--mesh-rank ARGS`` is phase 12's rank
+body (the script launches it; not for a caller).
 
 B1 and B2 are each listed twice in the kernel line, float32 and float64,
 each with its launches on every path; B2 float32's include
-``window_candles`` and the PostgreSQL-backed run of phase 11.
+``window_candles`` and the PostgreSQL-backed run of phase 11, and the
+mesh's runner and session of phase 12 (both ranks' launches), B1
+float32's the mesh's surface task and dry run.
 
 Prints a JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -744,9 +770,10 @@ def surface_step(surface, tridiag) -> dict:
 
 # -- phase 4: the streaming refit ---------------------------------------------
 
-def streaming_session(svc, agg) -> dict:
-    B, E, N, W, CAP, CHUNKS, PER = (STREAM[x] for x in
-                                    ("B", "E", "N", "W", "CAP", "CHUNKS", "PER"))
+def stream_data():
+    """STREAM's universe from a seeded numpy generator: (underlyings, k,
+    iv, T, the tick chunks, the minutes a chunk spans)."""
+    B, E, N, W, CHUNKS, PER = (STREAM[x] for x in ("B", "E", "N", "W", "CHUNKS", "PER"))
     rng = np.random.default_rng(14)
     half = rng.uniform(0.8, 1.2, (B, 1, 1))
     k = np.broadcast_to(half * np.linspace(-1.0, 1.0, N), (B, E, N)).astype(np.float32)
@@ -764,7 +791,13 @@ def streaming_session(svc, agg) -> dict:
                        "minute": minute.ravel(),
                        "price": np.take_along_axis(path, minute, -1).ravel(),
                        "size": rng.uniform(0, 5, B * PER)})
+    return unds, k, iv, T, chunks, span
 
+
+def streaming_session(svc, agg) -> dict:
+    B, E, N, W, CAP, CHUNKS, PER = (STREAM[x] for x in
+                                    ("B", "E", "N", "W", "CAP", "CHUNKS", "PER"))
+    unds, k, iv, T, chunks, span = stream_data()
     t0 = time.perf_counter()
     sess = svc.StreamingSession(list(unds), k, iv, T, window_minutes=W,
                                 tick_capacity=CAP, n_grid=50, device=DEV)
@@ -1206,10 +1239,10 @@ class DispatchProbe:
         self.events, self.methods = [], []
 
     def __enter__(self):
-        def probed(batch, config, device, on_stage=None):
+        def probed(batch, config, device, on_stage=None, mesh=None):
             start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            dev = self.orig(batch, config, device, on_stage)
+            dev = self.orig(batch, config, device, on_stage, mesh=mesh)
             end.record()
             self.events.append((start, end))
             self.methods.append(dev["method"])
@@ -1239,15 +1272,16 @@ def read_table(store, table, symbols=None):
     return df.sort_values(TABLE_KEYS[table]).reset_index(drop=True)
 
 
-def tables_equal(a_store, b_store, what: str) -> int:
-    """Every table equal, value for value, except the 5-minute volume: a
-    float32 sum of <= 5 one-minute volumes, within 8 eps32 of it (the
-    kernel's atomics may add a bucket's parts in another order). Returns
-    the number of 5-minute volumes that differ at all."""
+def tables_equal(a_store, b_store, what: str, symbols=None) -> int:
+    """Every table equal (over ``symbols`` when given), value for value,
+    except the 5-minute volume: a float32 sum of <= 5 one-minute volumes,
+    within 8 eps32 of it (the kernel's atomics may add a bucket's parts in
+    another order). Returns the number of 5-minute volumes that differ at
+    all."""
     import pandas as pd
     differ = 0
     for table in TABLE_KEYS:
-        a, b = read_table(a_store, table), read_table(b_store, table)
+        a, b = read_table(a_store, table, symbols), read_table(b_store, table, symbols)
         if table == "reconstructed_candles":
             va, vb = a.pop("volume").to_numpy(np.float64), b.pop("volume").to_numpy(np.float64)
             check(len(va) == len(vb) and bool((np.abs(va - vb) <= 8 * EPS32 * np.abs(vb)).all()),
@@ -3378,6 +3412,508 @@ def operator_phase(root, surface_store_, reset_counts, read_counts) -> dict:
             "shard_reference": shard_launches, "autolam_ms": ring["autolam"]["ms"],
             "window_candles_ms": ring["ms"]}
 
+# -- phase 12: the device mesh ------------------------------------------------
+
+# phase 12: (a) sequence-parallel interpolation at 128 series x 4 columns x
+# 2^19 minutes (a year of 1-minute rows a series, 1.07 GB of float32
+# values, about 80 % missing; every 4th series has a gap across the
+# timeline's midpoint, the seam of two ranks, every 8th is empty past it)
+# on a world of one rank over NCCL in this process; (b) one launched world
+# of two ranks sharing the card over gloo: the same timeline, 2^18 minutes
+# a rank; the runner at 1,024 symbols x 168 hourly rows, 256 a batch (4
+# batches); phase 7's store through the surface task (cubic, ah); a
+# STREAM session for 7 refits; the dry run's proofs 2-3; (c) the CLI under
+# ``torch.distributed.run --nproc-per-node 2``: --task pipeline on the first
+# 256 of those symbols (one batch; cut from 1,024, a minute on the H100) and
+# --task serve, both at once, beside this process's one-rank runner
+# reference (the three are read for correctness only)
+MESH = dict(series=128, cols=4, minutes=1 << 19, missing=0.8, seed=28, ranks=2,
+            symbols=1024, hours=168, drop_frac=0.1, batch=256, refits=7, cli_symbols=256,
+            timeout=300)
+MESH_METHODS = ("cubic_spline", "ah")
+
+
+def mesh_work() -> Path:
+    return Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+
+
+def mesh_timeline(device):
+    """MESH's timeline on ``device`` from a seeded generator: (values
+    (S, C, L) float32, timeline mask (S, 1, L) with 1,000 padded minutes
+    at the end of every 16th series)."""
+    P = MESH
+    S, C, L = P["series"], P["cols"], P["minutes"]
+    g = torch.Generator(device=device).manual_seed(P["seed"])
+    vals = 5.0 + torch.randn((S, C, L), generator=g, device=device)
+    vals.masked_fill_(torch.rand((S, C, L), generator=g, device=device) < P["missing"],
+                      float("nan"))
+    vals[::4, :, L // 2 - 20_000:L // 2 + 20_000] = float("nan")
+    vals[::8, :, L // 2:] = float("nan")
+    mask = torch.ones((S, 1, L), dtype=torch.bool, device=device)
+    mask[1::16, :, L - 1000:] = False
+    return vals, mask
+
+
+def digest(t: torch.Tensor) -> int:
+    """A position-weighted sum of a float32 tensor's bits (NaN as one
+    value): equal digests for bitwise-equal tensors."""
+    bits = torch.nan_to_num(t.float(), nan=-7.0).view(torch.int32).reshape(-1).to(torch.int64)
+    weights = torch.arange(bits.numel(), device=bits.device) % 65521 + 1
+    return int((bits * weights).sum())
+
+
+def mesh_config(get_config, work, batch: int, shape):
+    cfg = runner_config(get_config, work, batch)
+    cfg.processing.mesh_shape = shape
+    cfg.monitoring.enable_snapshots = False
+    cfg.monitoring.log_dir = str(work / "logs")
+    return cfg
+
+
+def mesh_world_one() -> dict:
+    """Phase 12 (a): a world of one rank over NCCL in this process (file
+    rendezvous), ``sharded_masked_interp``'s local form and its all-gather
+    on a (1, 1) mesh against ``masked_interp`` bit for bit; CUDA-event
+    times of the fill, the all-gather and the plain call."""
+    from iv_interpolation_tpu_torch.ops.interp import masked_interp
+    from iv_interpolation_tpu_torch.parallel import mesh as pmesh
+    from iv_interpolation_tpu_torch.parallel.sequence import local_masked_interp
+
+    rdzv = mesh_work() / "rendezvous1"
+    rdzv.mkdir(parents=True, exist_ok=True)
+    backend = pmesh.init_world(DEV, init_method=f"file://{rdzv}/store", world_size=1, rank=0,
+                               timeout_s=120)
+    try:
+        check(backend == "nccl", f"(a) a world of one rank on a card of its own is nccl: {backend}")
+        mesh = pmesh.make_mesh((1, 1), device=DEV)
+        vals, mask = mesh_timeline(mesh.device)
+        L = vals.shape[-1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ref = masked_interp(vals, mask)
+        plain_ms = cuda_ms(lambda: masked_interp(vals, mask), 1)
+        fill = local_masked_interp(vals, mask, mesh, L)
+        fill_ms = cuda_ms(lambda: local_masked_interp(vals, mask, mesh, L), 1)
+        whole = pmesh.all_gather(mesh, fill, "data", dim=-1)
+        gather_ms = cuda_ms(lambda: pmesh.all_gather(mesh, fill, "data", dim=-1), 1)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        check(same_with_nan(whole, ref), "(a) the mesh's fill equals masked_interp bit for bit")
+        missing = float(torch.isnan(vals).double().mean())
+        out = {"digest": digest(ref), "fill_ms": fill_ms, "gather_ms": gather_ms,
+               "plain_ms": plain_ms, "peak_gib": peak, "missing": missing}
+        del vals, mask, ref, fill, whole
+    finally:
+        pmesh.shutdown_world()
+    torch.cuda.empty_cache()
+    check(peak <= 40, f"(a) one rank's peak within 40 GB ({peak:.1f} GiB)")
+    log(f"  (a) world of 1 (nccl): {MESH['series']} x {MESH['cols']} x {MESH['minutes']:,} "
+        f"float32, {missing:.1%} missing: fill {fill_ms:.2f} ms, all-gather {gather_ms:.2f} ms, "
+        f"masked_interp {plain_ms:.2f} ms (CUDA events); equal bit for bit; peak {peak:.2f} GiB")
+    return out
+
+
+def mesh_rank(args: dict) -> int:
+    """Phase 12 (b), one rank of the launched world: joins it (gloo, the
+    card shared), runs the sequence, runner, surface task, session and dry
+    run in turn, each with the launch counts set to 0 before it and read
+    after, and prints its result line. Rank 0 writes what it gathered
+    under ``args["work"]``."""
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.ops.cuda import stream_agg as agg
+    from iv_interpolation_tpu_torch.ops.cuda import tridiag
+    from iv_interpolation_tpu_torch.ops.interp import masked_interp
+    from iv_interpolation_tpu_torch.parallel import dryrun
+    from iv_interpolation_tpu_torch.parallel import mesh as pmesh
+    from iv_interpolation_tpu_torch.parallel.sequence import local_masked_interp
+    from iv_interpolation_tpu_torch.pipeline import runner as runner_mod
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline import surface_task as task
+    from iv_interpolation_tpu_torch.pipeline.stream_service import StreamingSession
+
+    from iv_interpolation_tpu_torch import _build
+
+    device = dryrun.join_world(DEV)
+    _build.pin_precision()
+    work = Path(args["work"])
+    mesh = pmesh.make_mesh((MESH["ranks"],), ("data",), device=DEV)
+    me = mesh.rank
+    out = {"rank": me, "backend": mesh.backend, "device": str(device)}
+
+    def reset():
+        tridiag.tridiag_solve_cuda.launches = 0
+        tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
+        agg.aggregate_ohlcv_cuda.launches = 0
+
+    def read():
+        by = tridiag.tridiag_solve_cuda.launches_by_dtype
+        return {"b1_f32": by["float32"], "b1_f64": by["float64"],
+                "b2": agg.aggregate_ohlcv_cuda.launches}
+
+    def timed(fn):
+        torch.cuda.synchronize(device)
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize(device)
+        return res, time.perf_counter() - t
+
+    # sequence: this rank's 2^18 minutes, against masked_interp of the whole
+    vals, mask = mesh_timeline(device)
+    L, half = vals.shape[-1], vals.shape[-1] // MESH["ranks"]
+    lo = me * half
+    ref = masked_interp(vals, mask)[..., lo:lo + half].clone()
+    torch.cuda.empty_cache()
+    chunk_v, chunk_m = vals[..., lo:lo + half].clone(), mask[..., lo:lo + half].clone()
+    del vals, mask
+    fill, fill_s = timed(lambda: local_masked_interp(chunk_v, chunk_m, mesh, L))
+    check(same_with_nan(fill, ref), f"(b) rank {me}: its chunk equals masked_interp's")
+    whole, gather_s = timed(lambda: pmesh.all_gather(mesh, fill, "data", dim=-1))
+    out["sequence"] = {"fill_s": fill_s, "gather_s": gather_s,
+                       "digest": digest(whole) if mesh.is_leader else None}
+    del chunk_v, chunk_m, fill, whole, ref
+    torch.cuda.empty_cache()
+
+    # the runner over a parquet store (rank 0's)
+    cfg = mesh_config(get_config, work / "runner_mesh", MESH["batch"], (MESH["ranks"],))
+    store = st.ParquetStore(str(work / "runner_mesh" / "data")) if mesh.is_leader else None
+    torch.cuda.reset_peak_memory_stats(device)
+    reset()
+    runner = runner_mod.PipelineRunner(cfg, store=store, device=DEV)
+    res, wall = timed(runner.run_pipeline_fused)
+    rows = sum(res[k]["output_rows"] for k in ("task1", "bridge", "task2"))
+    out["runner"] = {"launches": read(), "wall_s": wall, "rows": rows,
+                     "host_s": dict(runner.host_s), "world": res["world"],
+                     "by_status": {k: res[k]["by_status"] for k in ("task1", "bridge", "task2")}}
+
+    # the surface task over phase 7's store (a copy, rank 0's)
+    surf = st.ParquetStore(str(work / "surface" / "data")) if mesh.is_leader else None
+    out["surface"] = {}
+    for method in MESH_METHODS:
+        scfg = surface_config(get_config, work / "surface", {"smile_method": method})
+        scfg.processing.mesh_shape = (MESH["ranks"],)
+        if mesh.is_leader:
+            surf.drop(task.SURFACES)
+        reset()
+        rep, wall = timed(lambda: task.run_surface_fit(scfg, surf, device=DEV))
+        out["surface"][method] = {"launches": read(), "wall_s": wall, "surfaces": rep["surfaces"]}
+        if mesh.is_leader:
+            sorted_surfaces(surf, task).to_pickle(work / f"surface_{method}.pkl")
+
+    # the session: STREAM's universe, MESH["refits"] refits
+    unds, k, iv, T, chunks, span = stream_data()
+    sess = StreamingSession(list(unds), k, iv, T, window_minutes=STREAM["W"],
+                            tick_capacity=STREAM["CAP"], n_grid=50, device=DEV, mesh=mesh)
+    reset()
+    refits, refit_s = {}, []
+    for c, ticks in enumerate(chunks[:MESH["refits"]]):
+        sess.ingest_ticks(ticks)
+        o, dt = timed(lambda: sess.refit(now_minute=(c + 1) * span - 1))
+        refit_s.append(dt)
+        if o is None:  # the whole result is rank 0's
+            continue
+        for f in ("w_grid", "iv_grid", "realized_vol", "butterfly_ok", "calendar_ok"):
+            refits[f"{c}_{f}"] = getattr(o, f).cpu().numpy()
+        refits[f"{c}_count"] = o.candles_1m.count.cpu().numpy()
+    out["session"] = {"launches": read(), "refit_s": refit_s, "rows": list(sess.rows)}
+    if mesh.is_leader:
+        np.savez(work / "session.npz", **refits)
+    del sess
+
+    # the dry run's proofs 2-3
+    reset()
+    (methods, dims), dry_s = timed(lambda: (dryrun.run_method_parity(mesh, device),
+                                            dryrun.run_collectives(device)))
+    out["dryrun"] = {"methods": methods, "mesh": dims[0], "bad_surfaces": dims[2],
+                     "wall_s": dry_s, "launches": read()}
+    out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    dryrun.report(out)
+    pmesh.shutdown_world()
+    return 0
+
+
+def mesh_stores(work) -> dict:
+    """Phase 12's stores: MESH's tickers for the reference and the mesh
+    runs, its first ``cli_symbols`` symbols for the CLI, a copy of phase
+    7's."""
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline.sample_data import generate_sample_tickers
+
+    P = MESH
+    tickers = generate_sample_tickers(num_symbols=P["symbols"], hours=P["hours"],
+                                      seed=P["seed"], drop_frac=P["drop_frac"])
+    cli_symbols = sorted(tickers["symbol"].unique())[:P["cli_symbols"]]
+    stores = {}
+    for name, rows in (("runner_ref", tickers), ("runner_mesh", tickers),
+                       ("cli", tickers[tickers["symbol"].isin(cli_symbols)])):
+        stores[name] = st.ParquetStore(str(work / name / "data"))
+        stores[name].write(st.TICKERS, rows, upsert_keys=["symbol", "date"])
+    shutil.copytree(surface_work() / "data", work / "surface" / "data")
+    return {"stores": stores, "cli_symbols": cli_symbols}
+
+
+def mesh_references(store7) -> dict:
+    """The one-rank references in this process, on the card: the surface
+    task with each method on phase 7's store, and the session's refits.
+    The runner's runs later (:func:`mesh_runner_reference`)."""
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import surface_task as task
+    from iv_interpolation_tpu_torch.pipeline.stream_service import StreamingSession
+
+    work = mesh_work()
+    surfaces = {}
+    for method in MESH_METHODS:
+        store7.drop(task.SURFACES)
+        task.run_surface_fit(surface_config(get_config, work / "surface_ref",
+                                            {"smile_method": method}), store7, device=DEV)
+        surfaces[method] = sorted_surfaces(store7, task)
+    store7.drop(task.SURFACES)
+    unds, k, iv, T, chunks, span = stream_data()
+    sess = StreamingSession(list(unds), k, iv, T, window_minutes=STREAM["W"],
+                            tick_capacity=STREAM["CAP"], n_grid=50, device=DEV)
+    refits = []
+    for c, ticks in enumerate(chunks[:MESH["refits"]]):
+        sess.ingest_ticks(ticks)
+        refits.append(sess.refit(now_minute=(c + 1) * span - 1))
+    torch.cuda.synchronize()
+    return {"surfaces": surfaces, "refits": refits}
+
+
+def mesh_runner_reference(work, refs) -> float:
+    """The one-rank fused run of MESH's store in this process (host s)."""
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import runner as runner_mod
+
+    t = time.perf_counter()
+    runner_mod.PipelineRunner(mesh_config(get_config, work / "runner_ref", MESH["batch"], None),
+                              refs["stores"]["runner_ref"]).run_pipeline_fused()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+
+def mesh_compare(work, refs, results, world_one) -> None:
+    """Phase 12 (b)'s results against the one-rank references."""
+    from iv_interpolation_tpu_torch.ops import andreasen_huge as ah
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+
+    P, n = MESH, MESH["ranks"]
+    check([r["backend"] for r in results] == ["gloo"] * n,
+          f"(b) ranks sharing one card use gloo: {[r['backend'] for r in results]}")
+    check(results[0]["sequence"]["digest"] == world_one["digest"],
+          "(b) the two ranks' timeline equals (a)'s bit for bit")
+    batches = P["symbols"] // P["batch"]
+    for r in results:
+        check(r["runner"]["launches"] == {"b1_f32": 0, "b1_f64": 0, "b2": batches},
+              f"(b) rank {r['rank']}: B2 once a batch ({batches}): {r['runner']['launches']}")
+        for method in MESH_METHODS:
+            got = r["surface"][method]["launches"]
+            check(got["b1_f32"] > 0 and got["b1_f64"] == 0 and got["b2"] == 0,
+                  f"(b) rank {r['rank']}: {method} launches B1 float32: {got}")
+        check(r["session"]["launches"]["b2"] == 2 * P["refits"],
+              f"(b) rank {r['rank']}: B2 twice a refit: {r['session']['launches']}")
+        check(r["session"]["rows"] == [r["rank"] * STREAM["B"] // n,
+                                       (r["rank"] + 1) * STREAM["B"] // n],
+              f"(b) rank {r['rank']} holds its block of the session")
+    lead = results[0]["runner"]
+    check(all(set(by) <= {"completed", "skipped"} for by in lead["by_status"].values()),
+          f"(b) runner: no symbol in error: {lead['by_status']}")
+    differ = tables_equal(st.ParquetStore(str(work / "runner_mesh" / "data")),
+                          refs["stores"]["runner_ref"], "(b) runner over the mesh")
+    import pandas as pd
+    for method in MESH_METHODS:
+        got = pd.read_pickle(work / f"surface_{method}.pkl")
+        want = refs["surfaces"][method]
+        check(len(got) == len(want), f"(b) {method}: {len(got)} rows, one rank {len(want)}")
+        for c in ("underlying", "expiry_t", "log_moneyness", "butterfly_ok", "calendar_ok"):
+            check(bool((got[c].to_numpy() == want[c].to_numpy()).all()), f"(b) {method}: {c} equal")
+        if method == "cubic_spline":
+            pd.testing.assert_frame_equal(got, want, check_exact=True)
+        else:
+            kq = torch.from_numpy(want["log_moneyness"].to_numpy(np.float64))
+            x, y = (torch.from_numpy(d["total_variance"].to_numpy(np.float64)) for d in (got, want))
+            gap = price_gap(ah, kq, x, y)
+            near = float(((ah.normalized_call(kq, x) - ah.normalized_call(kq, y)).abs()
+                          <= 1024 * EPS32).double().mean())
+            check(near >= 0.99 and gap <= 1e-3,
+                  f"(b) ah over the mesh as on one rank: price gap {gap:.3e}, {near:.2%} within "
+                  f"1024 ulps")
+    saved = np.load(work / "session.npz")
+    w_err = 0.0
+    for c, ref in enumerate(refs["refits"]):
+        for f in ("butterfly_ok", "calendar_ok"):
+            check(np.array_equal(saved[f"{c}_{f}"], getattr(ref, f).cpu().numpy()),
+                  f"(b) refit {c}: {f} equal")
+        check(np.array_equal(saved[f"{c}_count"], ref.candles_1m.count.cpu().numpy()),
+              f"(b) refit {c}: 1-min counts equal")
+        w, wr = saved[f"{c}_w_grid"], ref.w_grid.cpu().numpy()
+        err = np.abs(w - wr)
+        check(bool((err <= 1e-4 * np.abs(wr) + 2e-5).all()),
+              f"(b) refit {c}: w_grid within phase 4's tolerance")
+        w_err = max(w_err, float(err.max()))
+    dry = results[0]["dryrun"]
+    check(dry["methods"] == ["cubic_spline", "svi", "essvi", "sabr", "smoothing_spline", "rbf",
+                             "ah"] and dry["bad_surfaces"] == 0, f"(b) dry run: {dry}")
+    log(f"  (b) runner: tables equal the one-rank run's ({differ} 5-min volumes differ within "
+        f"8 eps32); surface task cubic exact, ah within phase 10's tolerance; session refits "
+        f"equal in flags, w_grid max err {w_err:.3e}")
+
+
+def mesh_env(work: Path, **overrides) -> dict:
+    from iv_interpolation_tpu_torch.parallel.dryrun import outside_world_env
+    env = outside_world_env()
+    env.update(IVTPU_CHECKPOINT__MANIFEST_DIR=str(work / "runs"),
+               IVTPU_MONITORING__LOG_DIR=str(work / "logs"),
+               IVTPU_MONITORING__ENABLE_SNAPSHOTS="false",
+               IVTPU_PROCESSING__MESH_SHAPE=str(MESH["ranks"]),
+               IVTPU_DIST_TIMEOUT_S=str(MESH["timeout"]), **overrides)
+    return env
+
+
+TORCHRUN = ("-m", "torch.distributed.run", "--standalone", "--nproc-per-node")
+
+
+def mesh_cli_start(work: Path) -> dict:
+    """Phase 12 (c), started: the CLI under ``torch.distributed.run`` with
+    two ranks on the card, ``--task pipeline`` over the CLI's store and
+    ``--task serve`` over phase 7's, at once; output to files."""
+    launcher = [sys.executable, *TORCHRUN, str(MESH["ranks"]), "-m",
+                "iv_interpolation_tpu_torch.cli", "--storage", "parquet", "--json", "--yes",
+                "--env", "production"]
+    runs = {"pipeline": (["--task", "pipeline", "--data-root", str(work / "cli" / "data")],
+                         mesh_env(work / "cli", IVTPU_PROCESSING__BATCH_SIZE=str(MESH["batch"]))),
+            "serve": (["--task", "serve", "--serve-port", "0", "--data-root",
+                       str(surface_work() / "data")], mesh_env(work / "serve"))}
+    started = {"t": time.perf_counter()}
+    for name, (argv, env) in runs.items():
+        with open(work / f"{name}.out", "w") as out, open(work / f"{name}.err", "w") as err:
+            started[name] = subprocess.Popen(launcher + argv, cwd=work, env=env, stdout=out,
+                                             stderr=err)
+    return started
+
+
+def mesh_cli_finish(work: Path, refs, started) -> dict:
+    """Phase 12 (c), checked: a client's ticks, flush, refit, stats and
+    stop to the server (stop ends both ranks); the pipeline exits 0 with
+    one JSON summary, rank 0's, and the one-rank reference's tables for
+    its symbols."""
+    import re
+
+    from iv_interpolation_tpu_torch.pipeline import serve
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+
+    server, pipeline = started["serve"], started["pipeline"]
+    try:
+        port, deadline = None, time.monotonic() + 240
+        while port is None and time.monotonic() < deadline:
+            check(server.poll() is None,
+                  f"(c) the server is up: {(work / 'serve.err').read_text()[-3000:]}")
+            found = re.search(r"on 127\.0\.0\.1:(\d+)", (work / "serve.out").read_text())
+            port = int(found.group(1)) if found else None
+            time.sleep(0.2)
+        check(port is not None, "(c) rank 0 listens")
+        up_s = time.perf_counter() - started["t"]
+        unds = surface_underlyings()
+        _, lines = serve_ticks(np.random.default_rng(MESH["seed"]), unds)
+        flush, refit, stats = serve.send_lines(
+            "127.0.0.1", port, lines + [{"cmd": "flush"}, {"cmd": "refit"}, {"cmd": "stats"}],
+            timeout=120)
+        (stop,) = serve.send_lines("127.0.0.1", port, [{"cmd": "stop"}], timeout=120)
+        server.wait(timeout=120)
+        pipeline.wait(timeout=600)
+    finally:
+        for proc in (server, pipeline):
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    check(server.returncode == 0 and stop == {"ok": True} and flush["total"] == len(lines)
+          and refit["ok"] and sorted(refit["realized_vol"]) == unds
+          and stats["ticks_seen"] == len(lines),
+          f"(c) serve under torchrun: ingest, refit, stats, stop; exit {server.returncode}")
+    stdout = (work / "pipeline.out").read_text()
+    check(pipeline.returncode == 0,
+          f"(c) --task pipeline under torchrun exits 0: {(work / 'pipeline.err').read_text()[-3000:]}")
+    summaries = [json.loads(ln) for ln in stdout.splitlines() if ln.startswith("{")]
+    check(len(summaries) == 1 and summaries[0]["world"]["size"] == MESH["ranks"]
+          and summaries[0]["world"]["backend"] == "gloo"
+          and summaries[0]["task2"]["by_status"] == {"completed": MESH["cli_symbols"]},
+          f"(c) one JSON summary, rank 0's: {stdout[-2000:]}")
+    differ = tables_equal(st.ParquetStore(str(work / "cli" / "data")),
+                          refs["stores"]["runner_ref"], "(c) the CLI over the mesh",
+                          symbols=refs["cli_symbols"])
+    world = summaries[0]["world"]
+    log(f"  (c) --task pipeline under torch.distributed.run (2 ranks), {MESH['cli_symbols']} "
+        f"symbols: exit 0, one summary (world {world['size']}, {world['backend']}, peaks by "
+        f"rank {[round(b / 2**30, 2) for b in world['peak_bytes_by_rank']]} GiB), wall "
+        f"{summaries[0]['wall_s']} s; tables equal the one-rank run's ({differ} 5-min volumes "
+        f"differ)")
+    log(f"  (c) --task serve under torch.distributed.run: up in {up_s:.1f} s (beside the "
+        f"pipeline and the reference), {len(unds)} underlyings, {len(lines):,} ticks, refit "
+        f"ok, stats {stats['ticks_seen']} ticks, stop ended both ranks")
+    return {"serve_up_s": up_s, "pipeline_wall_s": summaries[0]["wall_s"]}
+
+
+def surface_underlyings() -> list:
+    """The underlyings of phase 7's store, as ``build_session`` names them."""
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline.surface_task import parse_symbol
+    syms = st.ParquetStore(str(surface_work() / "data")).list_symbols(st.INTERPOLATED)
+    return sorted({p[0] for p in map(parse_symbol, syms) if p is not None})
+
+
+def mesh_phase(root: Path, store7) -> dict:
+    """Phase 12: (a) in this process, then the one-rank references, (b) the
+    launched world of two ranks sharing the card, (c) the CLI under
+    torch.distributed.run. Returns the mesh paths' launches."""
+    from iv_interpolation_tpu_torch.parallel import dryrun
+
+    work = mesh_work()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    world_one = mesh_world_one()
+    refs = mesh_stores(work)
+    t = time.perf_counter()
+    world = dryrun.start_world(MESH["ranks"], [str(root / "chip_smoke.py"), "--mesh-rank",
+                                               json.dumps({"work": str(work)})],
+                               timeout_s=MESH["timeout"])
+    # the light references while the ranks start (10-20 s before they
+    # reach the card)
+    refs.update(mesh_references(store7))
+    log(f"  the one-rank surface and session references: done "
+        f"{time.perf_counter() - t:.1f} s after the launch")
+    results = [dryrun.result_of(out) for out in world.wait(900)]
+    world_s = time.perf_counter() - t
+    for r in results:
+        run = r["runner"]
+        log(f"  (b) rank {r['rank']} ({r['backend']}, {r['device']}): sequence fill "
+            f"{r['sequence']['fill_s'] * 1e3:.1f} ms, all-gather {r['sequence']['gather_s'] * 1e3:.1f} ms "
+            f"(host clock); runner {run['wall_s']:.2f} s, {run['rows'] / run['wall_s']:,.0f} output "
+            f"rows/s, host s " + ", ".join(f"{k} {v:.3f}" for k, v in sorted(run["host_s"].items()))
+            + f", launches {run['launches']}; surface "
+            + ", ".join(f"{m} {v['wall_s']:.2f} s {v['launches']}" for m, v in r["surface"].items())
+            + f"; session refits ms {[round(x * 1e3, 1) for x in r['session']['refit_s']]}, "
+            f"launches {r['session']['launches']}; dry run {r['dryrun']['wall_s']:.1f} s; peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB")
+    log(f"  (b) runner peaks by rank (GiB): "
+        f"{[round(b / 2**30, 2) for b in results[0]['runner']['world']['peak_bytes_by_rank']]}; "
+        f"the world took {world_s:.1f} s from launch to exit")
+    # (c) and the one-rank runner reference at once: all three are read for
+    # correctness only
+    started = mesh_cli_start(work)
+    ref_s = mesh_runner_reference(work, refs)
+    log(f"  the one-rank runner reference: {ref_s:.2f} s (beside (c))")
+    cli = mesh_cli_finish(work, refs, started)
+    mesh_compare(work, refs, results, world_one)
+    shutil.rmtree(work, ignore_errors=True)
+    log(f"  phase 12 took {time.perf_counter() - t0:.1f} s")
+    launches = {"surface_b1": 0, "runner_b2": 0, "session_b2": 0, "dryrun_b1": 0}
+    for r in results:
+        launches["surface_b1"] += sum(v["launches"]["b1_f32"] for v in r["surface"].values())
+        launches["runner_b2"] += r["runner"]["launches"]["b2"]
+        launches["session_b2"] += r["session"]["launches"]["b2"]
+        launches["dryrun_b1"] += r["dryrun"]["launches"]["b1_f32"]
+    return {**launches, "world_s": world_s, "sequence": world_one, "cli": cli}
+
+
 def parse_phases(argv) -> set | None:
     """``--phases 2,9``: the phases a development run keeps (phase 1, the
     build, always runs). None, the default, runs them all."""
@@ -3389,6 +3925,9 @@ def parse_phases(argv) -> set | None:
 
 
 def main(argv=()) -> int:
+    if list(argv[:1]) == ["--mesh-rank"]:
+        # one rank of phase 12's launched world
+        return mesh_rank(json.loads(argv[1]))
     only = parse_phases(list(argv))
     want = lambda n: only is None or n in only
     if not torch.cuda.is_available():
@@ -3550,6 +4089,16 @@ def main(argv=()) -> int:
                                   read_counts)
         log(f"  launches (B2, counted in this process): {operator}")
         done(11)
+    if want(12):
+        log("phase 12: the device mesh")
+        log(f"  card: {smi.splitlines()[0]}")
+        if store is None:
+            store = surface_store(np.random.default_rng(SURFACE_TASK["seed"]))[0]
+        check(isinstance(store, st.ParquetStore), "phase 12 needs phase 7's parquet store")
+        meshed = mesh_phase(Path(__file__).resolve().parent, store)
+        log(f"  launches on the mesh paths (both ranks): "
+            f"{ {k: v for k, v in meshed.items() if k.endswith(('_b1', '_b2'))} }")
+        done(12)
     shutil.rmtree(surface_work(), ignore_errors=True)
     if only is not None:
         log(f"partial run of phases {sorted(only)}: no result line")
@@ -3582,7 +4131,9 @@ def main(argv=()) -> int:
             "fused_batch (phase 5)": fused["b1"], "runner (phase 6)": host["launches"]["b1"],
             "surface task (phase 7)": surf_task["launches"]["b1_f32"],
             "AH fit_eval + eval_ah (phase 10)": ah_res["b1_f32"],
-            "AH surface task (phase 10)": fam["launches"]["b1_f32"]},
+            "AH surface task (phase 10)": fam["launches"]["b1_f32"],
+            "mesh surface task (phase 12)": meshed["surface_b1"],
+            "mesh dry run (phase 12)": meshed["dryrun_b1"]},
         "tridiag_thomas_f64": {"surface task parity (phase 7)": surf_task["launches"]["b1_f64"],
                                "AH float64 fit (phase 10)": ah_res["b1_f64"]},
         "stream_agg": {
@@ -3591,7 +4142,9 @@ def main(argv=()) -> int:
             "serving refits (phase 8)": served["launches"]["b2"],
             "window_candles (phase 11)": operator["window_candles"],
             "postgres-backed run (phase 11)": operator["postgres"],
-            "shard proofs' reference runs (phase 11)": operator["shard_reference"]},
+            "shard proofs' reference runs (phase 11)": operator["shard_reference"],
+            "mesh runner (phase 12)": meshed["runner_b2"],
+            "mesh session (phase 12)": meshed["session_b2"]},
         "stream_agg_f64": {"float64 pipeline (phase 6)": host["b2_f64_launches"]},
     }
     check(all(n > 0 for n in paths["tridiag_thomas_f64"].values())
@@ -3601,10 +4154,14 @@ def main(argv=()) -> int:
           and paths["stream_agg"]["serving refits (phase 8)"] > 0
           and paths["stream_agg"]["window_candles (phase 11)"] > 0
           and paths["stream_agg"]["postgres-backed run (phase 11)"] > 0
-          and paths["stream_agg_f64"]["float64 pipeline (phase 6)"] > 0,
+          and paths["stream_agg_f64"]["float64 pipeline (phase 6)"] > 0
+          and paths["tridiag_thomas_f32"]["mesh surface task (phase 12)"] > 0
+          and paths["stream_agg"]["mesh runner (phase 12)"] > 0
+          and paths["stream_agg"]["mesh session (phase 12)"] > 0,
           f"B1 float32 and float64 ran on the surface task and the AH paths, B2 on the served "
           f"refits, window_candles and the postgres-backed run and, in float64, on the "
-          f"float64 pipeline: {paths}")
+          f"float64 pipeline; B1 on the mesh's surface task, B2 on its runner and session: "
+          f"{paths}")
     thomas = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/tridiag_thomas.cu",
                   replaces="iv_interpolation_tpu/ops/pallas/tridiag_pallas.py:57")
     agg_src = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/stream_agg.cu",

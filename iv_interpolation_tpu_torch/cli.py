@@ -25,6 +25,12 @@ The operator surface of the JAX package's ``iv-tpu``, on one card:
                     default) unless ``--device cpu`` is given
 
 Run as ``iv-tpu-torch ...`` or ``python -m iv_interpolation_tpu_torch.cli``.
+Under a launched world (``torchrun`` / ``python -m torch.distributed.run
+--nproc-per-node N -m iv_interpolation_tpu_torch.cli ...``) every rank runs
+the CLI: it initialises the world first, ``processing.mesh_shape`` (e.g.
+``IVTPU_PROCESSING__MESH_SHAPE=2``) shards the tasks over the ranks, rank 0
+alone prints and writes, and the exit code is the largest of the ranks'.
+A mesh larger than the world exits 2 with the message.
 Every flag of the JAX package's ``iv-tpu`` is here. ``--check-db``,
 ``--monitor`` and ``--visualize`` read the store or the manifests only and
 never touch the device; the monitor's side process creates no CUDA
@@ -151,8 +157,9 @@ ENVIRONMENT=development
 #IVTPU_STORAGE__PG_USER=postgres
 #IVTPU_STORAGE__PG_PASSWORD=
 
-# processing
+# processing (MESH_SHAPE: ranks of a torch.distributed world, e.g. 2)
 #IVTPU_PROCESSING__BATCH_SIZE=256
+#IVTPU_PROCESSING__MESH_SHAPE=
 #IVTPU_PROCESSING__READ_CHUNK_SYMBOLS=2048
 #IVTPU_CHECKPOINT__MAX_RETRIES=3
 
@@ -162,7 +169,22 @@ ENVIRONMENT=development
 """
 
 
+def _leader() -> bool:
+    """Rank 0 of the launched world, or the only process: it prints."""
+    from iv_interpolation_tpu_torch.parallel.mesh import world_info
+    return world_info()["rank"] == 0
+
+
+def _own_store(runner):
+    """The runner's store itself: under a mesh rank 0's (None on the other
+    ranks), not the view that broadcasts its reads."""
+    from iv_interpolation_tpu_torch.parallel.mesh import RankStore
+    return runner.store.store if isinstance(runner.store, RankStore) else runner.store
+
+
 def _emit(args, payload: dict, title: str) -> None:
+    if not _leader():
+        return
     if args.json:
         print(json.dumps(payload, default=str))
         return
@@ -209,6 +231,27 @@ def _visualize(config, args) -> int:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    from iv_interpolation_tpu_torch.parallel import mesh as pmesh
+    world = pmesh.launched_world() > 1
+    if world:
+        # every rank joins before it reads a config or touches a store
+        pmesh.init_world(args.device)
+    try:
+        code = _main(args)
+        if world:
+            # the run's exit code is the worst rank's
+            code = pmesh.worst_code(code)
+    finally:
+        if world:
+            pmesh.shutdown_world()
+    return code
+
+
+def _main(args) -> int:
+    if not _leader() and (args.init_env or args.check_db or args.list_batches
+                          or args.visualize or args.monitor):
+        # host-only commands: rank 0 alone runs them
+        return 0
 
     if args.init_env:
         root = args.data_root or "."
@@ -250,7 +293,9 @@ def main(argv=None) -> int:
             print(f"--shard index out of range: {args.shard}", file=sys.stderr)
             return 2
     if config.processing.enable_logging:
-        setup_logging(config.monitoring.log_dir, config.processing.log_level)
+        # rank 0 alone keeps the log files
+        setup_logging(config.monitoring.log_dir if _leader() else None,
+                      config.processing.log_level)
 
     from iv_interpolation_tpu_torch.pipeline import storage as st
     from iv_interpolation_tpu_torch.pipeline.manifest import RunManifest
@@ -289,19 +334,34 @@ def main(argv=None) -> int:
         RealtimeMonitor(config).run()
         return 0
 
-    runner = PipelineRunner(config, device=args.device)
+    try:
+        runner = PipelineRunner(config, device=args.device)
+    except ValueError as e:
+        if "mesh_shape" not in str(e):
+            raise
+        print(f"iv-tpu-torch: {e}", file=sys.stderr)
+        return 2
     runner.install_signal_handler()
 
     if args.compact:
-        if not hasattr(runner.store, "compact"):
+        from iv_interpolation_tpu_torch.parallel.mesh import from_leader
+        store = _own_store(runner)
+
+        def compact():
+            if not hasattr(store, "compact"):
+                return None
+            report = {}
+            for table in store.tables():
+                before = len(store._parts(table))
+                store.compact(table)
+                report[table] = {"parts_before": before, "parts_after": 1}
+            return report
+
+        report = from_leader(runner.mesh, compact)
+        if report is None:
             _emit(args, {"ok": False, "reason": "backend has no compaction"},
                   "compact")
             return 1
-        report = {}
-        for table in runner.store.tables():
-            before = len(runner.store._parts(table))
-            runner.store.compact(table)
-            report[table] = {"parts_before": before, "parts_after": 1}
         _emit(args, report, "compaction complete")
         return 0
 
@@ -346,7 +406,7 @@ def main(argv=None) -> int:
 
     limit = 3 if args.test else args.symbols
     monitor_proc = None
-    if args.with_monitor:
+    if args.with_monitor and _leader():
         # spawn, not fork: a fork of a process whose torch runtime has
         # started threads (and a CUDA context) can deadlock
         import multiprocessing as mp
@@ -365,6 +425,8 @@ def main(argv=None) -> int:
         out = _dispatch(args, runner, limit)
     out["wall_s"] = round(time.time() - t0, 3)
     out["status"] = runner.status()
+    if runner.mesh is not None and "world" not in out:
+        out["world"] = runner.world_report()
     if profiling:
         out["profile_dir"] = config.monitoring.profiler_dir
     if monitor_proc is not None:
@@ -378,16 +440,25 @@ def main(argv=None) -> int:
 def _confirm_large_run(args, runner, limit) -> bool:
     """Operator guard for runs over 100 symbols, active only on a TTY and
     bypassed by --yes/--test."""
-    if args.yes or args.test or not sys.stdin.isatty():
+    if args.yes or args.test:
         return True
+    from iv_interpolation_tpu_torch.parallel.mesh import from_leader
     from iv_interpolation_tpu_torch.pipeline import storage as st
-    n = len(runner.store.list_symbols(st.TICKERS))
-    if limit:
-        n = min(n, limit)
-    if n <= 100:
-        return True
-    answer = input(f"process {n} symbols? [y/N] ").strip().lower()
-    return answer in ("y", "yes")
+    store = _own_store(runner)
+
+    def ask() -> bool:
+        if not sys.stdin.isatty():
+            return True
+        n = len(store.list_symbols(st.TICKERS))
+        if limit:
+            n = min(n, limit)
+        if n <= 100:
+            return True
+        answer = input(f"process {n} symbols? [y/N] ").strip().lower()
+        return answer in ("y", "yes")
+
+    # rank 0 asks; every rank follows its answer
+    return from_leader(runner.mesh, ask)
 
 
 def _dispatch(args, runner, limit):
@@ -414,8 +485,7 @@ def _dispatch(args, runner, limit):
         # a scoped run reconstructs only this run's symbols
         scope = None
         if limit or args.resume or args.start_date or args.end_date:
-            m = runner._manifest("interpolation", out["task1"].get("batch_id"))
-            scope = sorted(s for s, r in m.records().items() if r.status == "completed")
+            scope = runner.completed_symbols("interpolation", out["task1"].get("batch_id"))
         out["task2"] = runner.run_task2(symbols=scope)
         return out
     if args.task == "surface":

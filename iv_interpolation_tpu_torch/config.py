@@ -4,7 +4,7 @@
 Every section and field of the JAX package's config is here with the same
 name and default, so ``config_to_dict`` of both packages agree and a
 config carried across (``convert.config_from_dict``) loads unchanged.
-A few knobs exist only for the TPU's compiler or mesh; the port keeps
+A few knobs exist only for the TPU's compiler; the port keeps
 them so configs load, and says in each one's comment that it does not
 read it.
 
@@ -16,7 +16,6 @@ overrides.
 from __future__ import annotations
 
 import dataclasses
-import math
 import os
 from dataclasses import dataclass, field
 from typing import Optional
@@ -55,8 +54,10 @@ class ProcessingConfig:
     # manifests are per process. CLI: --shard I/N.
     shard_index: int = 0
     shard_count: int = 1
-    # device mesh of the JAX pipeline. The port runs on one device: None
-    # or a shape whose product is 1 (see check_single_device)
+    # data-parallel mesh over torch.distributed ranks
+    # (parallel.mesh.pipeline_mesh): batches shard their symbol dim over
+    # the first axis. None -> every launched rank; a product other than
+    # the launched world raises
     mesh_shape: Optional[tuple] = None
     mesh_axis_names: tuple = ("data",)
     dtype: str = "float32"  # device compute dtype ('float32'|'float64'|'bfloat16')
@@ -290,15 +291,3 @@ def _apply_override(cfg: Config, section_name: str, field_name: str, value) -> N
 
 def config_to_dict(cfg: Config) -> dict:
     return dataclasses.asdict(cfg)
-
-
-def check_single_device(processing: ProcessingConfig) -> None:
-    """Raise unless ``processing.mesh_shape`` describes one device: the
-    port runs the pipeline on one card, and the JAX package's device
-    mesh (``parallel/mesh.py``) is not ported yet (ROADMAP A7). A larger
-    mesh is refused, never run on one device in silence."""
-    shape = processing.mesh_shape
-    if shape is not None and math.prod(int(s) for s in shape) != 1:
-        raise ValueError(
-            f"processing.mesh_shape={tuple(shape)}: the device mesh is not "
-            f"ported yet (ROADMAP A7); use None or a shape of one device")

@@ -17,21 +17,29 @@ from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 
-def device_memory_stats() -> dict:
-    """Card 0's memory from the caching allocator: bytes in use, the peak
-    since the last ``reset_peak_memory_stats`` and the card's total. Empty
-    without CUDA, or before anything touched the card (reading the
-    counters would otherwise initialise it). The module does not import
-    torch: a process that never did (the monitor's) has touched no card."""
+def device_memory_stats(rank_peak_bytes: Optional[List[int]] = None) -> dict:
+    """The current card's memory from the caching allocator (a rank's own
+    card under a mesh): bytes in use, the peak since the last
+    ``reset_peak_memory_stats`` and the card's total. Empty without CUDA,
+    or before anything touched the card (reading the counters would
+    otherwise initialise it). ``rank_peak_bytes``, every rank's peak that
+    the runner gathered, adds the mesh's total and the list, as the JAX
+    package sums its mesh's devices. The module does not import torch: a
+    process that never did (the monitor's) has touched no card."""
+    out: dict = {}
     torch = sys.modules.get("torch")
-    if torch is None or not (torch.cuda.is_available() and torch.cuda.is_initialized()):
-        return {}
-    stats = torch.cuda.memory_stats(0)
-    return {
-        "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
-        "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
-        "bytes_limit": torch.cuda.get_device_properties(0).total_memory,
-    }
+    if torch is not None and torch.cuda.is_available() and torch.cuda.is_initialized():
+        dev = torch.cuda.current_device()
+        stats = torch.cuda.memory_stats(dev)
+        out = {
+            "bytes_in_use": stats.get("allocated_bytes.all.current", 0),
+            "peak_bytes_in_use": stats.get("allocated_bytes.all.peak", 0),
+            "bytes_limit": torch.cuda.get_device_properties(dev).total_memory,
+        }
+    if rank_peak_bytes:
+        out["all_ranks_peak_bytes_in_use"] = int(sum(rank_peak_bytes))
+        out["rank_peak_bytes_in_use"] = list(rank_peak_bytes)
+    return out
 
 
 def host_memory_stats() -> dict:
@@ -86,6 +94,8 @@ class StepMetrics:
 
     snapshot_dir: Optional[str] = None
     steps: List[dict] = field(default_factory=list)
+    #: every rank's peak device bytes, set by the runner under a mesh
+    rank_peak_bytes: Optional[List[int]] = None
 
     @contextmanager
     def step(self, name: str, items: int = 0):
@@ -126,7 +136,7 @@ class StepMetrics:
             "tag": tag,
             "ts": time.time(),
             "summary": self.summary(),
-            "device": device_memory_stats(),
+            "device": device_memory_stats(self.rank_peak_bytes),
             "host": host_memory_stats(),
         }
         with open(path, "w") as f:

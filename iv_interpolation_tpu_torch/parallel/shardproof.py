@@ -55,10 +55,14 @@ TABLE_KEYS = {"interpolated_trading_tickers": ["symbol", "date"],
 def subprocess_env(manifest_dir: str, log_dir: str,
                    overrides: Optional[Dict[str, str]] = None) -> dict:
     """The environment of a shard's CLI subprocess: this process's, less
-    every JAX or XLA variable, with the package on ``PYTHONPATH``, the
-    manifest and log directories overridden, snapshots off, and
-    ``overrides`` (``IVTPU_*`` settings) on top."""
-    env = {k: v for k, v in os.environ.items() if not k.startswith(_FOREIGN_ENV)}
+    every JAX or XLA variable and the ``torch.distributed`` launcher's (a
+    rank of a mesh may run the proof; its shards are processes of their
+    own), with the package on ``PYTHONPATH``, the manifest and log
+    directories overridden, snapshots off, and ``overrides`` (``IVTPU_*``
+    settings) on top."""
+    from iv_interpolation_tpu_torch.parallel.mesh import WORLD_ENV
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(_FOREIGN_ENV) and k not in WORLD_ENV}
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (_REPO_ROOT, env.get("PYTHONPATH", "")) if p)
     env["IVTPU_CHECKPOINT__MANIFEST_DIR"] = manifest_dir
@@ -138,7 +142,8 @@ def _read_tables(data_root: str) -> Dict[str, "object"]:
 def _reference_run(data_root: str, device: str,
                    batch_size: Optional[int] = None) -> Dict[str, "object"]:
     """The unsharded in-process fused run of the port over ``data_root``,
-    on ``device``; returns its tables."""
+    on ``device`` (one rank's, inside a launched world too); returns its
+    tables."""
     from iv_interpolation_tpu_torch.config import get_config
     from iv_interpolation_tpu_torch.pipeline import storage as st
     from iv_interpolation_tpu_torch.pipeline.runner import PipelineRunner
@@ -146,6 +151,7 @@ def _reference_run(data_root: str, device: str,
     cfg = get_config("testing")
     cfg.storage.backend = "parquet"
     cfg.storage.root = data_root
+    cfg.processing.mesh_shape = (1,)
     if batch_size:
         cfg.processing.batch_size = batch_size
     with tempfile.TemporaryDirectory() as td:

@@ -152,6 +152,10 @@ class FlightStreamServer(fl.FlightServerBase if HAVE_FLIGHT else object):
         elif action.type == "stop":
             with self._lock:
                 self._flush_locked()
+                # under a mesh: the other ranks stop following
+                close = getattr(self.session, "close", None)
+                if close is not None:
+                    close()
             body = {"ok": True}
             threading.Thread(target=self.shutdown, daemon=True).start()
         else:
@@ -200,11 +204,16 @@ def run_serve_flight(config, store, port: int = 8815, n_underlyings: int = 64,
                      device: torch.device | str = "cuda") -> "FlightStreamServer":
     """CLI entry (``--task serve --serve-transport flight``): the JSONL
     server's session, the Flight transport in front, on the card unless
-    ``device`` names another."""
+    ``device`` names another. Under a mesh rank 0 serves and the other
+    ranks follow it until ``stop`` (they return None)."""
     _require_flight()
-    from iv_interpolation_tpu_torch.pipeline.serve import build_session
+    from iv_interpolation_tpu_torch.pipeline.serve import build_session, follow, mesh_role
     session, unds = build_session(config, store, n_underlyings=n_underlyings,
                                   device=device)
+    session, serving = mesh_role(session)
+    if not serving:
+        follow(session)
+        return None
     server = FlightStreamServer(session, port=port)
     print(f"serving {len(unds)} underlyings on grpc+tcp://127.0.0.1:"
           f"{server.port} (Arrow Flight; do_action('stop') to exit)", flush=True)

@@ -20,14 +20,23 @@ Two layers:
   quality-gate isolation and ``--shard`` ownership. It runs on the card
   unless built with ``device="cpu"``.
 
+Under a mesh (``processing.mesh_shape`` over ``torch.distributed`` ranks,
+``parallel.mesh``) every rank runs the same runner: it computes its block
+of each batch's rows on its own device, and rank 0 gathers the rows,
+unpacks and writes them. Rank 0 alone reads the store (each read is
+broadcast, so every rank packs the same batches), decides the work list,
+the batch id and the resume set, and writes the manifests; a rank's
+error is shared before any gather, so a failed batch takes the same
+branch on every rank.
+
 The JAX package's compile-wall cap (``processing.max_slots_per_batch``)
-is not read and its device mesh is not ported: the port runs on one
-device.
+is not read.
 """
 
 from __future__ import annotations
 
 import math
+import tempfile
 import time
 import zlib
 from collections import defaultdict, deque
@@ -39,12 +48,14 @@ import numpy as np
 import pandas as pd
 import torch
 
-from iv_interpolation_tpu_torch.config import check_single_device
 from iv_interpolation_tpu_torch.monitoring.logging import PerformanceLogger, get_logger
 from iv_interpolation_tpu_torch.monitoring.metrics import StepMetrics
 from iv_interpolation_tpu_torch.ops import prng
 from iv_interpolation_tpu_torch.ops.bridge import BridgeParams, validate_bridge_quality
 from iv_interpolation_tpu_torch.ops.segment_ohlcv import validate_ohlcv
+from iv_interpolation_tpu_torch.parallel.mesh import (Mesh, agree, any_rank, collect,
+                                                      from_leader, gather_objects,
+                                                      pipeline_mesh, rank_store, world_info)
 from iv_interpolation_tpu_torch.pipeline import ingest, tasks
 from iv_interpolation_tpu_torch.pipeline import storage as st
 from iv_interpolation_tpu_torch.pipeline.manifest import RunManifest, free_batch_id
@@ -137,6 +148,46 @@ def _split_by_obs_count(batch: ingest.PackedBatch,
     return out
 
 
+def _take_rows(batch, lo: int, hi: int):
+    """Rows ``lo:hi`` of a packed batch (dense or compact) as a batch of
+    their own: a rank's block under a mesh. Compact observations of other
+    rows are dropped; the padding entries keep the row sentinel."""
+    sl = lambda a: None if a is None else a[lo:hi]
+    kw = dict(bucket_len=batch.bucket_len, symbols=list(batch.symbols[lo:hi]),
+              t0_minutes=sl(batch.t0_minutes), valid_len=sl(batch.valid_len),
+              values=sl(batch.values), obs_mask=sl(batch.obs_mask),
+              timeline_mask=sl(batch.timeline_mask), n_obs=sl(batch.n_obs),
+              const_cols={c: list(v[lo:hi]) for c, v in batch.const_cols.items()},
+              columns=batch.columns)
+    if batch.obs_row is not None:
+        keep = (batch.obs_row >= lo) & (batch.obs_row < hi)
+        n = int(keep.sum())
+        N = ingest.obs_pad(n)
+        obs_vals = ingest.full_nan((N,) + batch.obs_vals.shape[1:], batch.obs_vals.dtype)
+        obs_vals[:n] = batch.obs_vals[keep]
+        obs_row = np.full(N, hi - lo, batch.obs_row.dtype)
+        obs_row[:n] = batch.obs_row[keep] - lo
+        obs_pos = np.zeros(N, batch.obs_pos.dtype)
+        obs_pos[:n] = batch.obs_pos[keep]
+        kw.update(obs_vals=obs_vals, obs_row=obs_row, obs_pos=obs_pos)
+    return ingest.PackedBatch(**kw)
+
+
+def _block_of(batch, mesh: Optional[Mesh], cubic: bool = False):
+    """(this rank's block of ``batch``, the cubic observation positions of
+    its rows or None). The positions are found on the whole batch: a
+    block of padding rows alone has none. Without a mesh, or where the
+    rows do not split over it, the whole batch."""
+    obs = _obs_positions(batch) if cubic else None
+    rows = mesh.block(len(batch.t0_minutes)) if mesh is not None else None
+    if rows is None:
+        return batch, obs
+    lo, hi = rows
+    if obs is not None and obs[0] is not None:
+        obs = (obs[0][lo:hi], obs[1])
+    return _take_rows(batch, lo, hi), obs
+
+
 def _obs_positions(batch):
     """(B, k) observation grid positions of a batch with one on-grid
     observation count k >= 2 across its non-empty rows, and whether the
@@ -178,11 +229,12 @@ def _device_grids(batch, device):
         L=batch.bucket_len)
 
 
-def _interpolate(batch, config, device, grids):
+def _interpolate(batch, config, device, grids, obs=None):
     """Task 1 of one batch on ``device``: (outputs, method that ran). A
     cubic batch needs one on-grid observation count and NaN-free
     interpolated columns at the observations; otherwise it falls back to
-    linear, with a warning."""
+    linear, with a warning. ``obs``: the batch's ``_obs_positions``, when
+    the caller found them (on the whole batch of a block)."""
     icfg = config.interpolation
     values, obs_mask, timeline_mask = grids
     np_dtype = _DTYPES[config.processing.dtype]
@@ -194,7 +246,7 @@ def _interpolate(batch, config, device, grids):
         bool), device=device)
     method, obs_pos = icfg.method, None
     if method == "cubic":
-        pos, clean = _obs_positions(batch)
+        pos, clean = obs if obs is not None else _obs_positions(batch)
         if clean:
             obs_pos = torch.as_tensor(pos, device=device)
         else:
@@ -233,21 +285,24 @@ def _price_base(filled: torch.Tensor, price_col: torch.Tensor) -> torch.Tensor:
 
 
 def dispatch(batch, config, device: torch.device | str,
-             on_stage: Optional[Callable[[str], None]] = None) -> dict:
+             on_stage: Optional[Callable[[str], None]] = None,
+             mesh: Optional[Mesh] = None) -> dict:
     """Enqueue the three stages of one batch on ``device``; returns the
     device tensors. ``on_stage(name)``, when given, is called after each
     stage is enqueued: 'scatter', 'interpolate', 'bridge', 'quality',
-    'candles' (a timer records an event there)."""
+    'candles' (a timer records an event there). Under ``mesh``, this
+    rank's block of the batch's rows."""
     icfg, bcfg = config.interpolation, config.data_bridge
     ccfg = config.candle_reconstruction
     mark = on_stage or (lambda name: None)
+    batch, obs = _block_of(batch, mesh, cubic=icfg.method == "cubic")
     freq = parse_frequency(icfg.frequency)
     tgt_freq = parse_frequency(ccfg.target_frequency)
     B_pad, L = len(batch.t0_minutes), batch.bucket_len
 
     grids = _device_grids(batch, device)
     mark("scatter")
-    out, method = _interpolate(batch, config, device, grids)
+    out, method = _interpolate(batch, config, device, grids, obs)
     mark("interpolate")
 
     values, obs_mask, _ = grids
@@ -311,9 +366,19 @@ def _mask_failed_rows(symbols, failed: Dict[str, str], valid: np.ndarray) -> np.
     return valid
 
 
-def readback(batch, dev: dict) -> dict:
+def readback(batch, dev: dict, mesh: Optional[Mesh] = None) -> Optional[dict]:
     """The device tensors of :func:`dispatch` -> numpy (waits for the
-    device), with the symbol-level quality gate applied."""
+    device), with the symbol-level quality gate applied. Under ``mesh``
+    every rank passes its block's tensors (or, under ``"error"``, what its
+    dispatch raised); rank 0 gets the whole batch, the others None."""
+    def block():
+        if "error" in dev:
+            raise dev["error"]
+        return dev
+
+    dev = collect(mesh, block, rows=len(batch.t0_minutes))
+    if dev is None:
+        return None
     res = _numpy(dev)
     failed = {}
     if res["quality_ok"] is not None:
@@ -388,27 +453,44 @@ def _per_symbol(df: pd.DataFrame) -> pd.Series:
 
 
 class PipelineRunner:
-    """End-to-end three-stage pipeline over a storage adapter, on one
-    device: the card unless ``device`` names another (``"cpu"`` for CPU
-    tensors; without a card a run on ``"cuda"`` raises)."""
+    """End-to-end three-stage pipeline over a storage adapter: on the card
+    unless ``device`` names another (``"cpu"`` for CPU tensors; without a
+    card a run on ``"cuda"`` raises), and under ``processing.mesh_shape``
+    on every rank of the launched world (``self.mesh``), each on its own
+    device."""
 
     #: batches in flight in ``run_pipeline_fused``: batch i+1 is
     #: dispatched before batch i is read back (1: each batch in turn)
     queue_depth = 2
 
     def __init__(self, config, store=None, device: torch.device | str = "cuda"):
-        check_single_device(config.processing)
         self.config = config
-        self.device = torch.device(device)
+        self.log = get_logger("pipeline")
+        # the data-parallel mesh of processing.mesh_shape over the launched
+        # ranks (None on one device); a shape the world cannot hold raises
+        self.mesh = pipeline_mesh(config.processing.mesh_shape,
+                                  config.processing.mesh_axis_names, device=device)
+        self.device = self.mesh.device if self.mesh is not None else torch.device(device)
+        #: rank 0 of the mesh, or the only process: it writes and reports
+        self.leader = self.mesh is None or self.mesh.is_leader
+        if self.mesh is not None:
+            self.log.info("pipeline mesh: shape=%s rank %d on %s (%s)", self.mesh.shape,
+                          self.mesh.rank, self.device, self.mesh.backend)
         # touch the device now: a runner that cannot reach it fails here,
         # before it reads the store or writes a manifest
         torch.empty(0, device=self.device)
-        self.store = store if store is not None else st.get_store(config.storage)
-        self.log = get_logger("pipeline")
+        if store is None and self.leader:
+            store = st.get_store(config.storage)
+        self.store = rank_store(store, self.mesh)
+        # the other ranks keep their manifests out of the run's directory
+        self._scratch = None if self.leader else tempfile.TemporaryDirectory(
+            prefix="ivtorch-rank-manifests-")
+        self.manifest_dir = (config.checkpoint.manifest_dir if self.leader
+                             else self._scratch.name)
         self.perf = PerformanceLogger()
         self.metrics = StepMetrics(
             snapshot_dir=config.monitoring.snapshot_dir
-            if config.monitoring.enable_snapshots else None)
+            if config.monitoring.enable_snapshots and self.leader else None)
         self.np_dtype = _DTYPES[config.processing.dtype]
         # cooperative stop flag, checked between batches; unfinished
         # symbols stay 'pending' in the manifest for --resume
@@ -419,6 +501,34 @@ class PipelineRunner:
 
     def request_stop(self) -> None:
         self.stop_requested = True
+
+    def _stopping(self) -> bool:
+        """The stop flag, agreed across the ranks (any rank's stop stops
+        every rank after the same batch)."""
+        return any_rank(self.mesh, self.stop_requested)
+
+    def _decide(self, fn):
+        """``fn()`` decided on rank 0 (manifest reads, the batch id) and
+        given to every rank."""
+        return from_leader(self.mesh, fn)
+
+    def completed_symbols(self, name: str, batch_id) -> List[str]:
+        """The symbols a stage's manifest records completed (rank 0's)."""
+        return self._decide(lambda: sorted(
+            s for s, r in self._manifest(name, batch_id).records().items()
+            if r.status == "completed"))
+
+    def world_report(self) -> dict:
+        """The world of a run, for its JSON: size, rank, backend, the mesh
+        and every rank's peak device memory (bytes; 0 on CPU ranks).
+        Collective under a mesh: every rank calls it."""
+        peak = (torch.cuda.max_memory_allocated(self.device)
+                if self.device.type == "cuda" else 0)
+        peaks = gather_objects(self.mesh, int(peak))
+        self.metrics.rank_peak_bytes = peaks
+        return {**world_info(), "device": str(self.device),
+                "mesh_shape": dict(self.mesh.shape) if self.mesh is not None else None,
+                "peak_bytes_by_rank": peaks}
 
     def install_signal_handler(self) -> None:
         """SIGINT -> graceful stop after the current batch."""
@@ -467,15 +577,24 @@ class PipelineRunner:
         ``new_batch_id`` (an id that ``_free_batch_id`` found free), else a
         new one under a fresh id."""
         return RunManifest(
-            self.config.checkpoint.manifest_dir, self._manifest_name(name),
+            self.manifest_dir, self._manifest_name(name),
             resume_batch_id if resume_batch_id is not None else new_batch_id,
             flush_interval=self.config.checkpoint.checkpoint_interval)
 
     def _free_batch_id(self) -> int:
         """One batch id free for all three stages: a run whose stages
         share it is resumed by it in every stage."""
-        return free_batch_id(self.config.checkpoint.manifest_dir,
-                             [self._manifest_name(n) for n in STAGE_NAMES])
+        return self._decide(lambda: free_batch_id(
+            self.manifest_dir, [self._manifest_name(n) for n in STAGE_NAMES]))
+
+    def _on_block(self, batch, compute, cubic: bool = False):
+        """``compute(rows, obs)`` on this rank's block of ``batch`` (the
+        whole batch without a mesh; ``obs`` the cubic observation
+        positions of its rows, or None) -> device tensors; returns the
+        whole batch's as numpy on rank 0 and None on the other ranks."""
+        dev = collect(self.mesh, lambda: compute(*_block_of(batch, self.mesh, cubic)),
+                      rows=len(batch.t0_minutes))
+        return None if dev is None else _numpy(dev)
 
     def _symbol_chunks(self, symbols: List[str]):
         """The requested symbols in groups of ``read_chunk_symbols``, so
@@ -532,17 +651,27 @@ class PipelineRunner:
 
     def _attempt(self, label: str, fn):
         """Run a batch computation with ``checkpoint.max_retries``
-        retries. Returns (result, None) or (None, last_error)."""
+        retries. Returns (result, None) or (None, last_error). Under a mesh
+        the ranks agree after each attempt, so all of them retry, or give
+        up, together."""
         retries = self.config.checkpoint.max_retries
         last = None
         for attempt in range(retries + 1):
+            out, err = None, None
             try:
-                return fn(), None
+                out = fn()
             except Exception as e:  # noqa: BLE001 — failure isolation
-                last = e
-                if attempt < retries:
-                    self.log.warning("%s attempt %d/%d failed: %s — retrying",
-                                     label, attempt + 1, retries + 1, e)
+                err = e
+            try:
+                agree(self.mesh, err)
+            except Exception as e:  # noqa: BLE001 — the mesh's verdict
+                err = e
+            if err is None:
+                return out, None
+            last = err
+            if attempt < retries:
+                self.log.warning("%s attempt %d/%d failed: %s — retrying",
+                                 label, attempt + 1, retries + 1, err)
         self.log.exception("%s failed after %d attempts", label, retries + 1,
                            exc_info=last)
         return None, last
@@ -556,7 +685,7 @@ class PipelineRunner:
         manifest takes ``new_batch_id`` when ``run_all`` gives one."""
         manifest = self._manifest(name, resume_batch_id, new_batch_id)
         if resume_batch_id is not None:
-            symbols = manifest.pending_symbols()
+            symbols = self._decide(manifest.pending_symbols)
             self.log.info("resume %s batch %s: %d pending symbols", name,
                           resume_batch_id, len(symbols))
         if symbols is None:
@@ -571,9 +700,10 @@ class PipelineRunner:
     def _run_batches(self, stage: str, manifest: RunManifest, batches, process) -> None:
         """The staged stages' loop: each batch through ``process`` with
         retries; a batch that keeps failing marks its symbols 'error' and
-        the run goes on."""
+        the run goes on. Under a mesh ``process`` returns None on every
+        rank but 0."""
         for batch in batches:
-            if self.stop_requested:
+            if self._stopping():
                 break
             t0 = time.time()
             with self.metrics.step(f"{stage}/L{batch.bucket_len}", items=batch.batch):
@@ -583,6 +713,8 @@ class PipelineRunner:
             if err is not None:
                 for sym in batch.symbols:
                     manifest.error_symbol(sym, str(err), time.time() - t0)
+                continue
+            if not self.leader:
                 continue
             result_df, failed = result
             share = (time.time() - t0) / batch.batch
@@ -619,10 +751,15 @@ class PipelineRunner:
         self.perf.log_batch_start(manifest.batch_id, len(symbols))
         freq = parse_frequency(self.config.interpolation.frequency)
 
+        def compute(rows, obs):
+            grids = _device_grids(rows, self.device)
+            return _interpolate(rows, self.config, self.device, grids, obs)[0]
+
         def process(batch):
-            grids = _device_grids(batch, self.device)
-            out, _ = _interpolate(batch, self.config, self.device, grids)
-            out_np = _numpy(out)
+            out_np = self._on_block(batch, compute,
+                                    cubic=self.config.interpolation.method == "cubic")
+            if out_np is None:
+                return None
             result_df = ingest.unpack_interpolated(
                 batch, out_np["filled"], out_np["valid"],
                 out_np["is_interpolated"], manifest.batch_id,
@@ -697,11 +834,10 @@ class PipelineRunner:
                     manifest.skip_symbol(sym, reason)
                 yield from packed.batches
 
-        def process(batch):
+        def compute(rows, _obs):
             dev = self.device
-            grids = _device_grids(batch, dev)
-            values, b_obs_mask, mask = grids
-            B_pad = batch.batch_padded
+            values, b_obs_mask, mask = _device_grids(rows, dev)
+            B_pad = rows.batch_padded
             # the stored rows are post-fill; on the grid they sit at the
             # observation positions, padding in between
             filled = tasks.interpolate_batch(
@@ -711,25 +847,33 @@ class PipelineRunner:
                 method="ffill", compute_greeks=False)
             up = ingest.ALL_COLS.index("underlying_price")
             pc = np.zeros(B_pad, np.int64)
-            pc[:len(batch.symbols)] = [price_choice.get(s, up) for s in batch.symbols]
+            pc[:len(rows.symbols)] = [price_choice.get(s, up) for s in rows.symbols]
             price_col = torch.as_tensor(pc, device=dev)
             # absolute epoch minutes of the grid rows: the draws key on
             # them, so candles match the fused path's
-            abs_min = (torch.as_tensor(np.asarray(batch.t0_minutes), device=dev)[:, None]
-                       + torch.arange(batch.bucket_len, device=dev)[None, :] * freq)
+            abs_min = (torch.as_tensor(np.asarray(rows.t0_minutes), device=dev)[:, None]
+                       + torch.arange(rows.bucket_len, device=dev)[None, :] * freq)
             ohlcv = tasks.bridge_batch(
                 filled["filled"], filled["valid"] & b_obs_mask,
-                _bridge_keys(batch.symbols, B_pad, cfg.seed, dev),
+                _bridge_keys(rows.symbols, B_pad, cfg.seed, dev),
                 params=_bridge_params(cfg), price_col=price_col,
                 strategy=cfg.conversion_strategy, abs_minutes=abs_min)
-            failed: Dict[str, str] = {}
+            ok = None
             if cfg.enable_quality_checks:
                 _, ok = validate_bridge_quality(
                     ohlcv["open"], ohlcv["high"], ohlcv["low"], ohlcv["close"],
                     _price_base(filled["filled"], price_col), ohlcv["valid"],
                     max_spread_frac=cfg.max_spread_percent)
-                failed = quality_failures(batch.symbols, _numpy(ok))
-            ohlcv_np = _numpy(ohlcv)
+            return {"ohlcv": ohlcv, "ok": ok}
+
+        def process(batch):
+            res = self._on_block(batch, compute)
+            if res is None:
+                return None
+            failed: Dict[str, str] = {}
+            if res["ok"] is not None:
+                failed = quality_failures(batch.symbols, res["ok"])
+            ohlcv_np = res["ohlcv"]
             ohlcv_np["valid"] = _mask_failed_rows(batch.symbols, failed,
                                                   ohlcv_np["valid"])
             result_df = _unpack_candles(batch, ohlcv_np, freq_minutes=freq)
@@ -776,36 +920,42 @@ class PipelineRunner:
                     manifest.skip_symbol(sym, reason)
                 yield from batches
 
-        def process(batch):
+        def compute(rows, _obs):
             dev = self.device
             # t0_minutes is in source-interval units: grid slot j is epoch
             # minute (t0 + j) * src_freq
-            t0 = torch.as_tensor(np.asarray(batch.t0_minutes), device=dev)
-            minutes = (t0[:, None] + torch.arange(batch.bucket_len, device=dev)[None, :]) * src_freq
-            values, valid_in, _ = _device_grids(batch, dev)
-            grids = {c: values[:, j] for j, c in enumerate(batch.columns)}
-            failed: Dict[str, str] = {}
+            t0 = torch.as_tensor(np.asarray(rows.t0_minutes), device=dev)
+            minutes = (t0[:, None] + torch.arange(rows.bucket_len, device=dev)[None, :]) * src_freq
+            values, valid_in, _ = _device_grids(rows, dev)
+            grids = {c: values[:, j] for j, c in enumerate(rows.columns)}
+            ok_in = ok_out = None
             if cfg.validate_ohlc:
                 _, ok_in = validate_ohlcv(grids["open"], grids["high"], grids["low"],
                                           grids["close"], grids["volume"], valid_in)
-                failed = quality_failures(batch.symbols, _numpy(ok_in),
-                                          "invalid input candle data")
-                if failed:
-                    # failed symbols' bars stay out of the aggregation
-                    sym_ok = np.array([s not in failed for s in batch.symbols]
-                                      + [True] * (batch.batch_padded - batch.batch))
-                    valid_in = valid_in & torch.as_tensor(sym_ok, device=dev)[:, None]
+                # a row with an invalid input bar (a failed symbol) stays
+                # out of the aggregation
+                valid_in = valid_in & ok_in.reshape(ok_in.shape[0], -1).all(1)[:, None]
             # ceil, so a misaligned t0 keeps its trailing partial bucket
             agg = tasks.candles_batch(
                 minutes, {**grids, "valid": valid_in}, freq, t0 * src_freq // freq,
-                num_segments=(batch.bucket_len * src_freq + freq - 1) // freq + 1,
+                num_segments=(rows.bucket_len * src_freq + freq - 1) // freq + 1,
                 min_count=cfg.min_candles_required)
             if cfg.validate_ohlc:
                 _, ok_out = validate_ohlcv(agg.open, agg.high, agg.low, agg.close,
                                            agg.volume, agg.valid)
-                failed.update(quality_failures(batch.symbols, _numpy(ok_out),
+            return {"agg": agg._asdict(), "ok_in": ok_in, "ok_out": ok_out}
+
+        def process(batch):
+            res = self._on_block(batch, compute)
+            if res is None:
+                return None
+            failed: Dict[str, str] = {}
+            if res["ok_in"] is not None:
+                failed = quality_failures(batch.symbols, res["ok_in"],
+                                          "invalid input candle data")
+                failed.update(quality_failures(batch.symbols, res["ok_out"],
                                                "invalid reconstructed candle data"))
-            agg_np = _numpy(agg._asdict())
+            agg_np = res["agg"]
             agg_np["valid"] = _mask_failed_rows(batch.symbols, failed, agg_np["valid"])
             result_df = _unpack_aggregated(batch, agg_np, freq, src_freq,
                                            cfg.target_frequency, created_at)
@@ -911,10 +1061,8 @@ class PipelineRunner:
                      for name in STAGE_NAMES}
         if resume_batch_id is not None:
             # a symbol is done only when all three stages completed it
-            pending = set()
-            for m in manifests.values():
-                pending.update(m.pending_symbols())
-            symbols = sorted(pending)
+            symbols = self._decide(lambda: sorted(
+                {s for m in manifests.values() for s in m.pending_symbols()}))
             self.log.info("fused resume batch %s: %d pending symbols",
                           resume_batch_id, len(symbols))
         if symbols is None:
@@ -968,11 +1116,18 @@ class PipelineRunner:
 
         def start(batch):
             with self._clock("dispatch"):
-                return dispatch(batch, self.config, self.device)
+                # a dispatch never raises: its error rides to the readback,
+                # where the ranks of a mesh share it before the gather
+                try:
+                    return dispatch(batch, self.config, self.device, mesh=self.mesh)
+                except Exception as e:  # noqa: BLE001
+                    return {"error": e}
 
         def finish(batch, dev):
             with self._clock("readback"):
-                res = readback(batch, dev)
+                res = readback(batch, dev, self.mesh)
+            if res is None:
+                return None
             with self._clock("unpack"):
                 interp_df = ingest.unpack_interpolated(
                     batch, res["filled"], res["valid"], res["is_interpolated"],
@@ -986,7 +1141,7 @@ class PipelineRunner:
                     created_at, base_bucket=batch.t0_minutes // tgt_freq)
             return interp_df, candle_df, recon_df, res["failed"]
 
-        pending = deque()  # (batch, dev_or_None, t0)
+        pending = deque()  # (batch, dev, t0)
 
         def complete_one():
             batch, dev, t0 = pending.popleft()
@@ -1008,6 +1163,8 @@ class PipelineRunner:
                 for sym in batch.symbols:
                     for m in manifests.values():
                         m.error_symbol(sym, str(err), time.time() - t0)
+                return
+            if not self.leader:
                 return
             interp_df, candle_df, recon_df, failed = result
             dt = time.time() - t0
@@ -1043,14 +1200,10 @@ class PipelineRunner:
         try:
             for batch in self._iter_packed_batches(symbols, skip_all,
                                                    start_date, end_date):
-                if self.stop_requested:
+                if self._stopping():
                     break
                 t0 = time.time()
-                try:
-                    dev = start(batch)
-                except Exception:  # noqa: BLE001 — retried, fresh dispatch
-                    dev = None
-                pending.append((batch, dev, t0))
+                pending.append((batch, start(batch), t0))
                 while len(pending) >= self.queue_depth:
                     complete_one()
             while pending:
@@ -1065,8 +1218,11 @@ class PipelineRunner:
                 writer.shutdown(wait=True)
                 for m in manifests.values():
                     m.flush()
+        out = {**summaries(), "step_metrics": self.metrics.summary(), "fused": True}
+        if self.mesh is not None:
+            out["world"] = self.world_report()
         self.metrics.snapshot(f"fused_{manifests['interpolation'].batch_id}")
-        return {**summaries(), "step_metrics": self.metrics.summary(), "fused": True}
+        return out
 
     # ------------------------------------------------------------------
     def run_all(self, symbols: Optional[List[str]] = None,
@@ -1090,13 +1246,12 @@ class PipelineRunner:
 
         def stage_ids(name):
             """(resume id, new id) of a downstream stage."""
-            if resume_batch_id is not None and self._manifest(name, resume_batch_id).records():
+            if resume_batch_id is not None and self._decide(
+                    lambda: bool(self._manifest(name, resume_batch_id).records())):
                 return resume_batch_id, None
             return None, run_id
 
-        def completed(name, batch_id):
-            m = self._manifest(name, batch_id)
-            return sorted(s for s, r in m.records().items() if r.status == "completed")
+        completed = self.completed_symbols
 
         # task 1 gets the id as it is: resuming an unknown batch is a
         # no-op (nothing pending), not a fresh full run
@@ -1110,9 +1265,12 @@ class PipelineRunner:
         scope2 = completed("bridge", s2.get("batch_id")) if scoped else None
         resume, new = stage_ids("candles")
         s3 = self.run_task2(symbols=scope2, resume_batch_id=resume, _new_batch_id=new)
+        out = {"task1": s1, "bridge": s2, "task2": s3,
+               "step_metrics": self.metrics.summary()}
+        if self.mesh is not None:
+            out["world"] = self.world_report()
         self.metrics.snapshot(f"pipeline_{s1.get('batch_id', 'run')}")
-        return {"task1": s1, "bridge": s2, "task2": s3,
-                "step_metrics": self.metrics.summary()}
+        return out
 
     def status(self) -> dict:
         """Row and symbol counts of the four tables."""

@@ -16,6 +16,11 @@ Protocol (newline-delimited JSON, one object per line):
 
 Single writer by design (one device session): clients may connect
 concurrently, and a lock serialises their requests.
+
+Under a mesh (``processing.mesh_shape`` over launched ranks) rank 0
+listens, and every call it makes on the session goes first to the other
+ranks (:class:`MeshSession`), which make it on their blocks in the same
+order (:func:`follow`); ``stop`` ends every rank.
 """
 
 from __future__ import annotations
@@ -29,7 +34,58 @@ from typing import Optional
 import numpy as np
 import torch
 
+from iv_interpolation_tpu_torch.parallel.mesh import broadcast_object
+
 TICK_COLUMNS = ("underlying", "minute", "price", "size")
+
+
+class MeshSession:
+    """The session on rank 0 of a mesh: each call is broadcast to the
+    other ranks before rank 0 makes it, so every rank runs the same calls
+    in the same order; anything else reads rank 0's session."""
+
+    def __init__(self, session):
+        self.session = session
+        self.closed = False
+
+    def __getattr__(self, name):
+        return getattr(self.session, name)
+
+    def _call(self, name: str, *args):
+        broadcast_object(self.session.mesh, (name, args))
+        return getattr(self.session, name)(*args)
+
+    def ingest_ticks(self, ticks) -> int:
+        return self._call("ingest_ticks", ticks)
+
+    def refit(self, now_minute=None):
+        return self._call("refit", now_minute)
+
+    def stats(self) -> dict:
+        return self._call("stats")
+
+    def close(self) -> None:
+        """End the other ranks' :func:`follow` (once)."""
+        if not self.closed:
+            self.closed = True
+            broadcast_object(self.session.mesh, ("stop", ()))
+
+
+def follow(session) -> int:
+    """A rank other than 0 of a served mesh: make rank 0's session calls
+    on this rank's block until it stops; returns the calls made. A call
+    that raises here raises on rank 0 too (same ticks), which replies with
+    the error; the loop goes on."""
+    calls = 0
+    while True:
+        name, args = broadcast_object(session.mesh, None)
+        if name == "stop":
+            return calls
+        calls += 1
+        try:
+            getattr(session, name)(*args)
+        except Exception:  # noqa: BLE001 — rank 0 replies with it
+            pass
 
 
 class StreamServer:
@@ -136,8 +192,14 @@ class StreamServer:
                 }
             if cmd == "stop":
                 self._flush_locked()
+                self._close_session()
                 return {"ok": True}
             return {"ok": False, "error": f"unknown cmd {cmd!r}"}
+
+    def _close_session(self) -> None:
+        close = getattr(self.session, "close", None)
+        if close is not None:
+            close()
 
     # ------------------------------------------------------------------
     def start(self) -> None:
@@ -149,6 +211,8 @@ class StreamServer:
         self._server.server_close()
         if self._thread:
             self._thread.join(timeout=5)
+        with self._lock:
+            self._close_session()
 
     def serve_forever(self) -> None:
         """Blocking serve (CLI mode); returns after a 'stop' command."""
@@ -175,13 +239,19 @@ def build_session(config, store, n_underlyings: int = 64,
     """The serving :class:`StreamingSession`, from the store's chains when
     it has interpolated data (``surface_task.build_chains``, one batch of
     every underlying), else a synthetic universe. Shared by the JSONL and
-    Arrow Flight transports. Returns ``(session, underlyings)``."""
-    from iv_interpolation_tpu_torch.config import check_single_device
+    Arrow Flight transports. Under ``processing.mesh_shape`` every launched
+    rank calls it and holds its block (rank 0 reads the store). Returns
+    ``(session, underlyings)``."""
+    from iv_interpolation_tpu_torch.parallel.mesh import pipeline_mesh, rank_store
     from iv_interpolation_tpu_torch.pipeline import storage as st
     from iv_interpolation_tpu_torch.pipeline.stream_service import StreamingSession
     from iv_interpolation_tpu_torch.pipeline.surface_task import build_chains, pack_chain_group
 
-    check_single_device(config.processing)
+    mesh = pipeline_mesh(config.processing.mesh_shape, config.processing.mesh_axis_names,
+                         device=device)
+    if mesh is not None:
+        device = mesh.device
+    store = rank_store(store, mesh)
     chains = []
     df = store.read(st.INTERPOLATED)
     if not df.empty:
@@ -204,22 +274,36 @@ def build_session(config, store, n_underlyings: int = 64,
                             (len(unds), E)).copy()
         iv = (0.5 + 0.05 * k * k).astype(np.float32)
     session = StreamingSession(unds, k, iv, T, n_grid=config.surface.grid_strikes,
-                               device=device)
+                               device=device, mesh=mesh)
     return session, unds
+
+
+def mesh_role(session):
+    """(the session a server fronts, whether this rank serves): rank 0 of
+    a mesh serves through :class:`MeshSession`, the other ranks follow."""
+    if session.mesh is None:
+        return session, True
+    return (MeshSession(session), True) if session.mesh.is_leader else (session, False)
 
 
 def run_serve(config, store, port: int = 8787, n_underlyings: int = 64,
               blocking: bool = True, device: torch.device | str = "cuda") -> "StreamServer":
     """CLI entry: serve the session over newline-delimited JSON on
     localhost:port (blocking unless told otherwise), on the card unless
-    ``device`` names another."""
+    ``device`` names another. Under a mesh rank 0 serves and the other
+    ranks follow it until ``stop`` (they return None)."""
     session, unds = build_session(config, store, n_underlyings=n_underlyings,
                                   device=device)
+    session, serving = mesh_role(session)
+    if not serving:
+        follow(session)
+        return None
     server = StreamServer(session, port=port)
     print(f"serving {len(unds)} underlyings on 127.0.0.1:{server.port} "
           f"(JSONL protocol; send {{\"cmd\": \"stop\"}} to exit)", flush=True)
     if blocking:
         server.serve_forever()
+        server._close_session()
     else:
         server.start()
     return server

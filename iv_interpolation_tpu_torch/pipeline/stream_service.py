@@ -4,8 +4,10 @@
 Ticks stream in per underlying and land in a device-resident tick ring
 (updated in place); ``refit()`` re-derives candles, realized vol and
 arbitrage-checked surfaces for every underlying in one
-``streaming_step``. One card: the reference's ``mesh`` argument waits for
-ROADMAP A3.
+``streaming_step``. Under a mesh (``parallel.mesh``) each rank holds its
+block of the underlyings (chains, spline operators, tick ring), every
+rank is called with the same ticks, and ``refit`` gathers the whole
+result on rank 0.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ import numpy as np
 import torch
 
 from iv_interpolation_tpu_torch.ops.spline_matrix import build_surface_operators_batched
+from iv_interpolation_tpu_torch.parallel.mesh import (collect, gather_objects, pipeline_mesh,
+                                                      shard_rows)
 from iv_interpolation_tpu_torch.pipeline.ringbuffer import RingState, make_ring, push, window
 from iv_interpolation_tpu_torch.pipeline.streaming import StreamingOut, streaming_step
 from iv_interpolation_tpu_torch.surface.surface import common_support_grid
@@ -47,20 +51,28 @@ class StreamingSession:
       spline_bc: boundary condition of the refit operators.
       device: where the chains, operators and ring live: the card unless
         the caller passes another (``device="cpu"`` for CPU tensors).
+      mesh: a ``parallel.mesh.Mesh`` (``pipeline_mesh``): this rank holds
+        the block of the underlyings' rows that ``shard_rows`` gives it (all
+        of them where B does not split), on the mesh's device. Every rank
+        makes the same calls in the same order.
     """
 
     def __init__(self, underlyings: List[str], chain_k, chain_iv, chain_T,
                  window_minutes: int = 512, tick_capacity: int = 8192,
                  n_grid: int = 50, spline_bc: str = "not-a-knot",
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda", mesh=None):
         self.underlyings = list(underlyings)
         self.index: Dict[str, int] = {u: i for i, u in
                                       enumerate(self.underlyings)}
         B = len(self.underlyings)
         self.window_minutes = int(window_minutes)
         self.n_grid = int(n_grid)
-        self.device = torch.device(device)
-        as_dev = lambda a: torch.as_tensor(a, device=self.device)
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else torch.device(device)
+        # this rank's rows [lo, hi) of the universe
+        self.rows = (mesh.block(B) if mesh is not None else None) or (0, B)
+        as_dev = lambda a: torch.as_tensor(shard_rows(mesh, a, expect_dim0=B),
+                                           device=self.device)
         self.chain_k = as_dev(chain_k)
         self.chain_iv = as_dev(chain_iv)
         self.chain_T = as_dev(chain_T)
@@ -71,7 +83,7 @@ class StreamingSession:
         self.spline_ops = build_surface_operators_batched(
             self.chain_k, queries, bc_type=spline_bc)
         # tick ring channels: [minute, price, size]
-        self.ring: RingState = make_ring(B, 3, int(tick_capacity),
+        self.ring: RingState = make_ring(self.rows[1] - self.rows[0], 3, int(tick_capacity),
                                          dtype=torch.float32,
                                          device=self.device)
         self.latest_minute: int = 0
@@ -89,25 +101,33 @@ class StreamingSession:
         Returns rows ingested; unknown underlyings are dropped.
 
         All underlyings' rows of one call go to the ring as one padded
-        (B, 3, K) block.
+        (B, 3, K) block. Under a mesh every rank is given the same ticks and
+        keeps its own rows; the count is the whole universe's.
         """
         und = np.asarray(ticks["underlying"])
         keep = np.fromiter((u in self.index for u in und), bool, len(und))
         if not keep.any():
             return 0
         rows = np.asarray([self.index[u] for u in und[keep]])
-        B = len(self.underlyings)
-        K = int(np.bincount(rows, minlength=B).max())
-        block = np.zeros((B, 3, K), np.float32)
-        valid = np.zeros((B, K), bool)
-        order = np.argsort(rows, kind="stable")
-        rows_s = rows[order]
-        minute_abs = np.asarray(ticks["minute"], np.int64)[keep][order]
+        minute_abs = np.asarray(ticks["minute"], np.int64)[keep]
         if self._minute_base is None:
             self._minute_base = int(minute_abs.min())
-        minute = (minute_abs - self._minute_base).astype(np.float32)
-        price = np.asarray(ticks["price"], np.float32)[keep][order]
-        size = np.asarray(ticks["size"], np.float32)[keep][order]
+        self.latest_minute = max(self.latest_minute, int(minute_abs.max()))
+        self.n_ticks_seen += len(rows)
+        lo, hi = self.rows
+        mine = (rows >= lo) & (rows < hi)
+        if not mine.any():
+            return len(rows)
+        B = hi - lo
+        local = rows[mine] - lo
+        K = int(np.bincount(local, minlength=B).max())
+        block = np.zeros((B, 3, K), np.float32)
+        valid = np.zeros((B, K), bool)
+        order = np.argsort(local, kind="stable")
+        rows_s = local[order]
+        minute = (minute_abs[mine][order] - self._minute_base).astype(np.float32)
+        price = np.asarray(ticks["price"], np.float32)[keep][mine][order]
+        size = np.asarray(ticks["size"], np.float32)[keep][mine][order]
         # position within each underlying's run
         pos = np.arange(len(rows_s)) - np.searchsorted(rows_s, rows_s)
         block[rows_s, _CH_MINUTE, pos] = minute
@@ -116,13 +136,14 @@ class StreamingSession:
         valid[rows_s, pos] = True
         push(self.ring, torch.from_numpy(block).to(self.device),
              torch.from_numpy(valid).to(self.device))
-        self.latest_minute = max(self.latest_minute, int(minute_abs.max()))
-        self.n_ticks_seen += len(rows_s)
-        return len(rows_s)
+        return len(rows)
 
     def refit(self, now_minute: Optional[int] = None) -> StreamingOut:
         """Refit every underlying from the ticks inside the lookback window
-        ending at ``now_minute`` (default: the latest ingested minute)."""
+        ending at ``now_minute`` (default: the latest ingested minute).
+        Under a mesh each rank refits its rows; rank 0 gets the whole
+        result and the other ranks None (the ranks share a failure
+        first)."""
         now = self.latest_minute if now_minute is None else int(now_minute)
         # ring minutes are rebased (see __init__): translate the absolute
         # window start into ring coordinates
@@ -136,18 +157,22 @@ class StreamingSession:
         # keeps arrival order within a minute
         m, p, s, ok = _sort_window_by_minute(
             minute_rel, data[:, _CH_PRICE], data[:, _CH_SIZE], in_window)
-        return streaming_step(
+        step = lambda: streaming_step(
             m, p, s, ok, self.chain_k, self.chain_iv, self.chain_T,
             n_minutes=self.window_minutes, n_grid=self.n_grid,
             spline_ops=self.spline_ops)
+        return collect(self.mesh, step, rows=len(self.underlyings))
 
     def stats(self) -> dict:
+        """The session's counters (collective under a mesh: the ring fill
+        is the fullest row of any rank)."""
         L = int(self.ring.data.shape[-1])
+        fill = int(self.ring.count.clamp(max=L).max()) if self.ring.count.numel() else 0
         return {
             "underlyings": len(self.underlyings),
             "ticks_seen": self.n_ticks_seen,
             "ring_capacity": L,
-            "ring_fill": int(self.ring.count.clamp(max=L).max()),
+            "ring_fill": max(gather_objects(self.mesh, fill)),
             "latest_minute": self.latest_minute,
         }
 
@@ -164,11 +189,17 @@ def run_stream_replay(config, n_underlyings: int = 64,
     """Synthetic streaming replay: GBM ticks ingested chunk by chunk with a
     refit after each (``iv-tpu-torch --task stream``). ``config`` is the
     port's ``iv_interpolation_tpu_torch.config.Config`` (its
-    ``surface.grid_strikes`` is read). Runs on the card
-    (``device=None`` means ``"cuda"``) unless ``device`` names another;
-    CPU callers pass ``device="cpu"``. Returns throughput and
-    diagnostics."""
+    ``surface.grid_strikes`` is read, and ``processing.mesh_shape`` where it
+    has one: under a launched world every rank runs the replay on its
+    block). Runs on the card (``device=None`` means ``"cuda"``) unless
+    ``device`` names another; CPU callers pass ``device="cpu"``. Returns
+    throughput and diagnostics."""
     device = torch.device("cuda" if device is None else device)
+    proc = getattr(config, "processing", None)
+    mesh = (pipeline_mesh(proc.mesh_shape, proc.mesh_axis_names, device=device)
+            if proc is not None else None)
+    if mesh is not None:
+        device = mesh.device
     rng = np.random.default_rng(seed)
     unds = [f"u{i:04d}" for i in range(n_underlyings)]
     E, n = 4, 12
@@ -180,7 +211,7 @@ def run_stream_replay(config, n_underlyings: int = 64,
     sess = StreamingSession(unds, k.copy(), iv, T.copy(),
                             window_minutes=window_minutes,
                             tick_capacity=4 * window_minutes,
-                            n_grid=config.surface.grid_strikes, device=device)
+                            n_grid=config.surface.grid_strikes, device=device, mesh=mesh)
     per_min = 0.5 / np.sqrt(365.25 * 24 * 60)
     paths = 100.0 * np.exp(np.cumsum(
         rng.normal(0, per_min, (n_underlyings, window_minutes)), axis=-1))
@@ -212,7 +243,8 @@ def run_stream_replay(config, n_underlyings: int = 64,
         "ticks_ingested": total_ticks,
         "device": str(device),
         "warm_refit_ms": round(sorted(refit_s)[len(refit_s) // 2] * 1e3, 1),
-        "realized_vol_mean": round(float(out.realized_vol.mean()), 4),
-        "butterfly_ok": int(out.butterfly_ok.sum()),
+        # a mesh's ranks other than 0 hold no result
+        "realized_vol_mean": None if out is None else round(float(out.realized_vol.mean()), 4),
+        "butterfly_ok": None if out is None else int(out.butterfly_ok.sum()),
         "stats": sess.stats(),
     }

@@ -3,8 +3,12 @@ with arbitrage diagnostics (port of
 ``iv_interpolation_tpu/pipeline/surface_task.py``).
 
 Groups the interpolated rows by underlying, builds per-expiry smiles from
-the latest snapshot, fits them with a ``models`` family on one device and
-stores the evaluated grid and its diagnostics in ``vol_surfaces``.
+the latest snapshot, fits them with a ``models`` family and stores the
+evaluated grid and its diagnostics in ``vol_surfaces``. Under
+``processing.mesh_shape`` every rank of the launched world fits its block
+of each bucket's underlyings on its own device (a bucket is padded to a
+multiple of the mesh with rows whose quotes are all masked), and rank 0
+gathers the fits, drops the padding and writes.
 
 Symbol convention as in the reference's data (``btc-20mar23-24500-c``):
 underlying-expiry-strike-cp.
@@ -23,7 +27,8 @@ import pandas as pd
 import torch
 
 from iv_interpolation_tpu_torch import models
-from iv_interpolation_tpu_torch.config import check_single_device
+from iv_interpolation_tpu_torch.parallel.mesh import (collect, from_leader, pad_to_multiple,
+                                                      pipeline_mesh, rank_store, shard_rows)
 from iv_interpolation_tpu_torch.pipeline import storage as st
 
 SURFACES = "vol_surfaces"
@@ -199,14 +204,19 @@ def run_surface_fit(config, store, limit: Optional[int] = None,
     ``surface.smoothing_lam`` the smoothing penalty, ``surface.compensated``
     parity mode, and ``surface.compute_local_vol`` adds Dupire local vol and
     risk-neutral density columns. Runs in ``processing.dtype`` on
-    ``device`` (the card unless told otherwise); a ``processing.mesh_shape``
-    of more than one device raises. A family's exception is not caught.
+    ``device`` (the card unless told otherwise), under
+    ``processing.mesh_shape`` on every launched rank (each rank calls it;
+    a mesh larger than the world raises, naming the ranks). A family's
+    exception is not caught (under a mesh every rank raises it).
     """
-    check_single_device(config.processing)
     scfg = config.surface
     method = method or scfg.smile_method
     model = models.get(method)
-    device = torch.device(device)
+    mesh = pipeline_mesh(config.processing.mesh_shape, config.processing.mesh_axis_names,
+                         device=device)
+    device = mesh.device if mesh is not None else torch.device(device)
+    store = rank_store(store, mesh)
+    n_mesh = mesh.shape[mesh.axis_names[0]] if mesh is not None else 1
     dtype = _DTYPES[config.processing.dtype]
     df = store.read(st.INTERPOLATED)
     if df.empty:
@@ -248,9 +258,7 @@ def run_surface_fit(config, store, limit: Optional[int] = None,
         else:
             buckets.append((shape, group))
 
-    out_frames = []
-    for (E_pad, n_pad), group in buckets:
-        k, iv, T, E_real, quote_mask = pack_chain_group(group, E_pad, n_pad)
+    def fit(k, iv, T, quote_mask):
         res_all = model.fit_eval(k, iv, T, quote_mask, scfg, dev=dev)
         keys = list(models.PERSIST_KEYS)
         if "w_grid_lo" in res_all:
@@ -260,15 +268,36 @@ def run_surface_fit(config, store, limit: Optional[int] = None,
         if scfg.compute_local_vol:
             res_all = model.attach_local_vol(res_all, T=dev(T), scfg=scfg)
             keys += ["local_vol", "density"]
-        out_frames.append(_bucket_frame(group, {key: res_all[key] for key in keys}, T, E_real))
+        return {key: res_all[key] for key in keys}
 
-    result = pd.concat(out_frames, ignore_index=True)
-    store.write(SURFACES, result, upsert_keys=["underlying", "expiry_t", "log_moneyness"])
-    per = result.groupby("underlying")
-    return {
-        "surfaces": len(by_und),
-        "grid_rows": len(result),
-        "butterfly_ok": int(per["butterfly_ok"].first().sum()),
-        "calendar_ok": int(per["calendar_ok"].first().sum()),
-        "method": method,
-    }
+    out_frames = []
+    for (E_pad, n_pad), group in buckets:
+        k, iv, T, E_real, quote_mask = pack_chain_group(group, E_pad, n_pad)
+        B = len(group)
+        # under a mesh, pad to a mesh multiple with copies of row 0 whose
+        # quotes are all masked, so the blocks are equal; the padded fits
+        # are dropped
+        B_fit = pad_to_multiple(B, n_mesh)
+        if B_fit != B:
+            k, iv, T = (np.concatenate([a, np.repeat(a[:1], B_fit - B, 0)]) for a in (k, iv, T))
+            quote_mask = np.concatenate(
+                [quote_mask, np.zeros((B_fit - B,) + quote_mask.shape[1:], bool)])
+        res = collect(mesh, lambda: fit(*shard_rows(mesh, k, iv, T, quote_mask)), rows=B_fit)
+        if res is not None:
+            out_frames.append(_bucket_frame(group, {key: v[:B] for key, v in res.items()},
+                                            T[:B], E_real))
+
+    def summary():
+        result = pd.concat(out_frames, ignore_index=True)
+        store.write(SURFACES, result, upsert_keys=["underlying", "expiry_t", "log_moneyness"])
+        per = result.groupby("underlying")
+        return {
+            "surfaces": len(by_und),
+            "grid_rows": len(result),
+            "butterfly_ok": int(per["butterfly_ok"].first().sum()),
+            "calendar_ok": int(per["calendar_ok"].first().sum()),
+            "method": method,
+        }
+
+    # rank 0 writes; every rank returns its summary
+    return from_leader(mesh, summary)

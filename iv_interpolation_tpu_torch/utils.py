@@ -32,6 +32,12 @@ def choose_bucket(length: int, bucket_sizes: Sequence[int]) -> Optional[int]:
     return None
 
 
+def pad_to_multiple(n: int, m: int) -> int:
+    """Smallest multiple of ``m`` >= ``n`` (batch padding so the blocks of
+    a mesh are equal)."""
+    return ((n + m - 1) // m) * m
+
+
 def batch_pad(n: int, max_batch: int) -> int:
     """Pad a chunk's batch dim to the geometric schedule 16, 32, 64, ...
     capped at ``max_batch``."""

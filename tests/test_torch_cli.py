@@ -330,3 +330,78 @@ def test_serve_task_serves_until_stopped(in_tmp, capsys, transport):
     (stats,) = seen
     assert isinstance(stats, dict) and stats["ok"] and stats["underlyings"] == 3, stats
     assert _json_lines(capsys)[-1]["serve"] == "stopped"
+
+
+def _cli_env(tmp, **overrides):
+    """A CLI subprocess's environment: no launcher or JAX variables, run
+    files under ``tmp``, group timeouts of 60 s."""
+    from iv_interpolation_tpu_torch.parallel.dryrun import outside_world_env
+    env = outside_world_env()
+    env.update(IVTPU_CHECKPOINT__MANIFEST_DIR=str(tmp / "runs"),
+               IVTPU_MONITORING__LOG_DIR=str(tmp / "logs"),
+               IVTPU_MONITORING__ENABLE_SNAPSHOTS="false", OMP_NUM_THREADS="2",
+               IVTPU_DIST_TIMEOUT_S="60", **overrides)
+    return env
+
+
+def test_pipeline_under_torch_distributed_run(tmp_path):
+    """``python -m torch.distributed.run --standalone --nproc-per-node 2``
+    of ``--task pipeline`` with ``IVTPU_PROCESSING__MESH_SHAPE=2``: exit 0,
+    one JSON summary (rank 0's, naming the gloo world), and the tables of a
+    one-process run of the same store. A mesh larger than the world exits
+    2 with the message, on every rank of the world and in one process."""
+    import re
+    import shutil
+    import subprocess
+    import sys
+
+    from iv_interpolation_tpu_torch.parallel.shardproof import _read_tables, assert_tables_equal
+    data = tmp_path / "data"
+    base = ["-m", "iv_interpolation_tpu_torch.cli", "--storage", "parquet", "--device", "cpu",
+            "--json", "--env", "testing", "--yes"]
+
+    def start(name, argv, root, env, extra=()):
+        # output to files, so the runs below go on side by side
+        with open(tmp_path / f"{name}.out", "w") as out, open(tmp_path / f"{name}.err", "w") as err:
+            return subprocess.Popen([sys.executable, *extra, *argv, "--data-root", str(root)],
+                                    cwd=tmp_path, env=env, stdout=out, stderr=err)
+
+    def finish(name, proc):
+        proc.wait(timeout=300)
+        return subprocess.CompletedProcess(proc.args, proc.returncode,
+                                           (tmp_path / f"{name}.out").read_text(),
+                                           (tmp_path / f"{name}.err").read_text())
+
+    gen = finish("gen", start("gen", base + ["--generate-sample-tickers", "--symbols", "12"],
+                              data, _cli_env(tmp_path)))
+    assert gen.returncode == 0, gen.stderr[-3000:]
+    shutil.copytree(data, tmp_path / "single")
+    shutil.copytree(data, tmp_path / "spare")
+    torchrun = ["-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "2"]
+    runs = {
+        "mesh": start("mesh", base + ["--task", "pipeline"], data,
+                      _cli_env(tmp_path / "mesh", IVTPU_PROCESSING__MESH_SHAPE="2",
+                               IVTPU_PROCESSING__BATCH_SIZE="8"), torchrun),
+        "single": start("single", base + ["--task", "pipeline"], tmp_path / "single",
+                        _cli_env(tmp_path / "one", IVTPU_PROCESSING__BATCH_SIZE="8")),
+        "too_big": start("too_big", base + ["--task", "pipeline"], tmp_path / "spare",
+                         _cli_env(tmp_path / "big", IVTPU_PROCESSING__MESH_SHAPE="4"), torchrun),
+        "alone": start("alone", base + ["--task", "pipeline"], tmp_path / "spare",
+                       _cli_env(tmp_path / "alone", IVTPU_PROCESSING__MESH_SHAPE="2")),
+    }
+    mesh, single, too_big, alone = (finish(name, proc) for name, proc in runs.items())
+    assert mesh.returncode == 0, mesh.stderr[-4000:]
+    summaries = [json.loads(ln) for ln in mesh.stdout.splitlines() if ln.startswith("{")]
+    assert len(summaries) == 1, mesh.stdout[-3000:]
+    (summary,) = summaries
+    assert summary["task2"]["by_status"] == {"completed": 12}
+    assert summary["world"]["size"] == 2 and summary["world"]["backend"] == "gloo"
+    assert summary["world"]["mesh_shape"] == {"data": 2}
+    assert single.returncode == 0, single.stderr[-3000:]
+    assert assert_tables_equal(_read_tables(str(data)), _read_tables(str(tmp_path / "single")),
+                               "cpu") == 0
+    # each rank exits 2; the launcher reports its failed ranks with exit 1
+    assert too_big.returncode == 1 and "needs 4 ranks; 2 launched" in too_big.stderr
+    assert re.search(r"exitcode\s*:\s*2", too_big.stderr), too_big.stderr[-3000:]
+    assert alone.returncode == 2 and "needs 2 ranks; 1 launched" in alone.stderr
+    assert not [ln for ln in alone.stdout.splitlines() if ln.startswith("{")]

@@ -116,12 +116,25 @@ def test_config_from_dict_rejects_unknown_names(bad):
 
 @pytest.mark.parametrize("shape", [(4,), (2, 1), (1, 8)])
 def test_a_mesh_of_more_than_one_device_raises(shape):
+    """In one process (a world of one rank) a mesh of more ranks raises,
+    naming the ranks it needs, before the runner touches a store; so does
+    its environment override."""
+    from iv_interpolation_tpu_torch.parallel.mesh import pipeline_mesh
     cfg = port.get_config("testing")
     cfg.processing.mesh_shape = shape
-    with pytest.raises(ValueError, match="mesh is not ported"):
-        port.check_single_device(cfg.processing)
-    with pytest.raises(ValueError, match="mesh is not ported"):
+    need = f"needs {shape[0] * (shape[1] if len(shape) > 1 else 1)} ranks; 1 launched"
+    with pytest.raises(ValueError, match=need):
+        pipeline_mesh(cfg.processing.mesh_shape, cfg.processing.mesh_axis_names, device="cpu")
+    with pytest.raises(ValueError, match=need):
         PipelineRunner(cfg, store=MemoryStore(), device="cpu")
+    os.environ["IVTPU_PROCESSING__MESH_SHAPE"] = ",".join(map(str, shape))
+    try:
+        env_cfg = port.get_config("testing")
+    finally:
+        del os.environ["IVTPU_PROCESSING__MESH_SHAPE"]
+    assert env_cfg.processing.mesh_shape == shape
+    with pytest.raises(ValueError, match=need):
+        PipelineRunner(env_cfg, store=MemoryStore(), device="cpu")
 
 
 @pytest.mark.parametrize("shape", [None, (1,), (1, 1)])

@@ -597,3 +597,187 @@ def test_runner_imports_nothing_of_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr[-3000:]
+
+
+# ----------------------------------------------------------------------
+# the runner over a mesh of ranks (parallel/mesh.py): launched worlds of
+# 2 and 4 gloo CPU ranks (parallel._ranks.runner), against the port's
+# unsharded run (byte for byte) and the JAX runner on its 8-device mesh
+# (tests/test_pipeline.py's mesh case) at this module's tolerances
+# ----------------------------------------------------------------------
+MESH_SYMBOLS, MESH_HOURS, MESH_BATCH = 16, 12, 8
+
+
+def _mesh_tickers():
+    return generate_sample_tickers(num_symbols=MESH_SYMBOLS, hours=MESH_HOURS, drop_frac=0.1)
+
+
+def _start_mesh_world(tmp, ranks, cases, **extra):
+    import json
+    import pickle
+
+    from iv_interpolation_tpu_torch.parallel import dryrun
+    with open(tmp / "tickers.pkl", "wb") as f:
+        pickle.dump(_mesh_tickers(), f)
+    args = {"device": "cpu", "out": str(tmp), "tickers": str(tmp / "tickers.pkl"),
+            "cases": cases, "batch": MESH_BATCH, **extra}
+    return dryrun.start_world(ranks, ["-m", "iv_interpolation_tpu_torch.parallel._ranks",
+                                      "runner", json.dumps(args)], timeout_s=60)
+
+
+def _finish_mesh_world(world):
+    from iv_interpolation_tpu_torch.parallel import dryrun
+    results = [dryrun.result_of(out) for out in world.wait(240)]
+    assert all(r["jax_free"] for r in results)
+    return [r["result"] for r in results]
+
+
+def _mesh_store(path):
+    import pickle
+    with open(path, "rb") as f:
+        tables = pickle.load(f)
+    store = st.MemoryStore()
+    for t, df in tables.items():
+        store.write(t, df)
+    return store
+
+
+def _mesh_config(root, method="linear"):
+    cfg = get_config("testing")
+    cfg.processing.dtype = "float64"
+    cfg.processing.batch_size = MESH_BATCH
+    cfg.interpolation.method = method
+    cfg.interpolation.min_data_points = 5
+    cfg.checkpoint.manifest_dir = str(root / "runs")
+    cfg.monitoring.enable_snapshots = False
+    return cfg
+
+
+@pytest.fixture(scope="module")
+def unsharded(tmp_path_factory):
+    """The port's one-process runs (fused, staged, cubic) of the mesh
+    tickers."""
+    root = tmp_path_factory.mktemp("unsharded")
+    out = {}
+    for case in ("fused", "staged", "cubic"):
+        store = st.MemoryStore()
+        store.write(st.TICKERS, _mesh_tickers())
+        runner = PipelineRunner(_mesh_config(root / case, "cubic" if case == "cubic"
+                                             else "linear"), store=store, device="cpu")
+        assert runner.mesh is None
+        (runner.run_all if case == "staged" else runner.run_pipeline_fused)()
+        out[case] = store
+    return out
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """The runner's mesh cases in a world of 2 ranks and one of 4, launched
+    together: {ranks: (output directory, each rank's result)}."""
+    symbols = sorted(_mesh_tickers()["symbol"].astype(str).unique())
+    tmp = {n: tmp_path_factory.mktemp(f"mesh{n}") for n in (2, 4)}
+    started = {2: _start_mesh_world(tmp[2], 2, ["fused", "staged", "cubic", "resume", "fail"],
+                                    fail_rank=1, fail_symbol=symbols[0]),
+               4: _start_mesh_world(tmp[4], 4, ["fused", "staged"])}
+    return {n: (tmp[n], _finish_mesh_world(w)) for n, w in started.items()}
+
+
+@pytest.fixture(scope="module")
+def world2(worlds):
+    return worlds[2]
+
+
+@pytest.fixture(scope="module")
+def world4(worlds):
+    return worlds[4]
+
+
+def _byte_equal(a_store, b_store):
+    for table in KEYS:
+        pd.testing.assert_frame_equal(_table(a_store, table), _table(b_store, table),
+                                      check_exact=True)
+
+
+@pytest.mark.parametrize("ranks", [2, 4])
+@pytest.mark.parametrize("case", ["fused", "staged"])
+def test_mesh_tables_equal_unsharded_and_jax(world2, world4, unsharded, jax_mesh, ranks, case):
+    """The runner over 2 and 4 ranks writes the one-process run's tables
+    byte for byte, and the JAX runner's on its 8-device mesh at this
+    module's float64 tolerances; rank 0's summary names the world."""
+    tmp, results = world2 if ranks == 2 else world4
+    for r, res in enumerate(results):
+        assert res[case]["mesh"] == {"data": ranks} and res[case]["leader"] == (r == 0)
+    got = _mesh_store(tmp / f"{case}.pkl")
+    _byte_equal(got, unsharded[case])
+    import pickle
+    with open(tmp / f"{case}_summary.pkl", "rb") as f:
+        summary = pickle.load(f)
+    assert summary["task2"]["by_status"] == {"completed": MESH_SYMBOLS}
+    assert summary["world"]["size"] == ranks and summary["world"]["backend"] == "gloo"
+    assert len(summary["world"]["peak_bytes_by_rank"]) == ranks
+    _assert_tables(got, jax_mesh(case), f64=True)
+
+
+@pytest.fixture(scope="module")
+def jax_mesh(tmp_path_factory):
+    """The JAX runner with its 8-device mesh on the mesh tickers, by case
+    (run once a case)."""
+    stores = {}
+
+    def run(case):
+        if case not in stores:
+            ref_cfg, _ = _configs(tmp_path_factory.mktemp(f"jax_{case}"))
+            ref_cfg.processing.mesh_shape = (8,)
+            ref_cfg.processing.batch_size = MESH_BATCH
+            stores[case] = RefMemoryStore()
+            stores[case].write(st.TICKERS, _mesh_tickers())
+            ref = RefRunner(ref_cfg, store=stores[case])
+            assert dict(ref.mesh.shape) == {"data": 8}
+            (ref.run_all if case == "staged" else ref.run_pipeline_fused)()
+        return stores[case]
+
+    return run
+
+
+def test_mesh_cubic_equals_unsharded(world2, unsharded):
+    tmp, _ = world2
+    _byte_equal(_mesh_store(tmp / "cubic.pkl"), unsharded["cubic"])
+
+
+def test_mesh_resume_finishes_the_run(world2, unsharded):
+    """Stopped after its first batch (every rank stops there), then
+    resumed by its batch id: the tables of the uninterrupted run."""
+    import pickle
+    tmp, _ = world2
+    with open(tmp / "resume_summary.pkl", "rb") as f:
+        summary = pickle.load(f)
+    first, resumed = summary["first"], summary["resumed"]
+    assert 0 < first["task1"]["by_status"].get("completed", 0) < MESH_SYMBOLS
+    assert resumed["task2"]["by_status"] == {"completed": MESH_SYMBOLS}
+    assert resumed["task1"]["batch_id"] == first["task1"]["batch_id"]
+    _byte_equal(_mesh_store(tmp / "resume.pkl"), unsharded["fused"])
+
+
+def test_mesh_rank_failure_errors_its_batch_only(world2, unsharded):
+    """Rank 1 raises in one batch on every attempt: the ranks agree before
+    the gather, retry together, and that batch's symbols end in error on
+    every stage; the other batch completes and nothing hangs."""
+    import pickle
+    tmp, results = world2
+    assert results[1]["fail"]["attempts"] == 2 and results[0]["fail"]["attempts"] == 0
+    with open(tmp / "fail_summary.pkl", "rb") as f:
+        summary = pickle.load(f)
+    batch_id = summary["task1"]["batch_id"]
+    errored = None
+    for stage in STAGES.values():
+        records = RunManifest(str(tmp / "fail" / "runs"), stage, batch_id).records()
+        bad = {s for s, r in records.items() if r.status == "error"}
+        assert all("rank 1: RuntimeError: injected failure" in records[s].error_message
+                   for s in bad)
+        assert 0 < len(bad) < MESH_SYMBOLS and errored in (None, bad)
+        assert all(r.status == "completed" for s, r in records.items() if s not in bad)
+        errored = bad
+    got = _table(_mesh_store(tmp / "fail.pkl"), st.INTERPOLATED)
+    want = _table(unsharded["fused"], st.INTERPOLATED)
+    want = want[~want["symbol"].isin(errored)].reset_index(drop=True)
+    pd.testing.assert_frame_equal(got, want, check_exact=True)

@@ -200,5 +200,49 @@ def test_build_session_refuses_a_mesh():
     from iv_interpolation_tpu_torch.pipeline import storage as st
     cfg = get_config("testing")
     cfg.processing.mesh_shape = (4,)
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="needs 4 ranks; 1 launched"):
         serve.build_session(cfg, st.MemoryStore(), device="cpu")
+
+
+def test_a_two_rank_server_answers_as_the_one_rank_server(rng, tmp_path):
+    """``run_serve`` in a launched world of 2 gloo CPU ranks (the synthetic
+    universe of 8 underlyings, 4 a rank): rank 0 listens and broadcasts
+    every session call, rank 1 follows; ingest, refit, stats and stop
+    answer as the one-process server over the same universe does, and
+    stop ends both ranks."""
+    import re
+    import time
+
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.parallel import dryrun
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    args = {"device": "cpu", "underlyings": 8, "n_grid": 10}
+    world = dryrun.start_world(2, ["-m", "iv_interpolation_tpu_torch.parallel._ranks",
+                                   "serve", json.dumps(args)], timeout_s=60)
+    try:
+        port, deadline = None, time.monotonic() + 120
+        while port is None and time.monotonic() < deadline:
+            found = re.search(r"on 127\.0\.0\.1:(\d+)", open(world.logs[0]).read())
+            port = int(found.group(1)) if found else None
+            assert all(p.poll() is None for p in world.procs), open(world.logs[0]).read()
+            time.sleep(0.1)
+        assert port is not None, "rank 0 never listened"
+        unds = [f"u{i:04d}" for i in range(8)]
+        lines = [t for u in unds for t in _ticks(rng, u, 40)]
+        cmds = [{"cmd": "flush"}, {"cmd": "refit"}, {"cmd": "stats"}]
+        got = serve.send_lines("127.0.0.1", port, lines + cmds, timeout=TIMEOUT)
+        got += serve.send_lines("127.0.0.1", port, [{"cmd": "stop"}], timeout=TIMEOUT)
+        results = [dryrun.result_of(out) for out in world.wait(120)]
+    finally:
+        world.stop()
+    assert results[0]["result"] == {"served": True} and results[1]["result"] == {"served": False}
+    cfg = get_config("testing")
+    cfg.surface.grid_strikes = 10
+    one = serve.run_serve(cfg, st.MemoryStore(), port=0, n_underlyings=8, blocking=False,
+                          device="cpu")
+    try:
+        want = _send(one, lines + cmds)
+        want += _send(one, [{"cmd": "stop"}])
+    finally:
+        one.stop()
+    assert got == want and got[0]["ingested"] == 8 * 40 and got[-1] == {"ok": True}

@@ -354,8 +354,9 @@ def test_pack_chain_group_matches_jax(interpolated):
 def test_ah_chunking_and_refusals(interpolated, monkeypatch):
     """``surface.ah_max_batch`` chunks an 'ah' run's buckets (a wrapper
     of the AH family records the batch sizes) into the same table; a
-    negative cap is refused (ROADMAP C4); a mesh of more than one device
-    raises before the store is read."""
+    negative cap is refused (ROADMAP C4); a mesh larger than the launched
+    world (one process: one rank) raises, naming the ranks, before the
+    store is read."""
     seen = []
     get_model = models.get
 
@@ -383,7 +384,7 @@ def test_ah_chunking_and_refusals(interpolated, monkeypatch):
     with pytest.raises(ValueError, match="ah_max_batch"):
         task.run_surface_fit(cfg, store, method="ah", device="cpu")
     cfg.processing.mesh_shape = (2,)
-    with pytest.raises(ValueError, match="mesh"):
+    with pytest.raises(ValueError, match="needs 2 ranks; 1 launched"):
         task.run_surface_fit(cfg, store, device="cpu")
 
 
@@ -443,3 +444,46 @@ def test_surface_and_serve_import_nothing_of_jax(tmp_path):
     proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0 and "OK" in proc.stdout, proc.stderr[-3000:]
+
+
+def _mesh_table(interpolated):
+    """The fixture's table plus 'sol' (a copy of btc: a bucket of 3
+    underlyings, padded to 4 over 2 ranks) and 'xrp' (eth's first two
+    expiries: a bucket of 1, padded to 2)."""
+    sol = interpolated[interpolated["symbol"].str.startswith("btc-")].copy()
+    sol["symbol"] = sol["symbol"].str.replace("btc-", "sol-", regex=False)
+    xrp = interpolated[interpolated["symbol"].str.match(r"eth-(28apr23|30jun23)-")].copy()
+    xrp["symbol"] = xrp["symbol"].str.replace("eth-", "xrp-", regex=False)
+    return pd.concat([interpolated, sol, xrp], ignore_index=True)
+
+
+def test_surface_task_over_a_mesh_equals_one_process(interpolated, tmp_path):
+    """``run_surface_fit`` in a launched world of 2 gloo CPU ranks (each
+    fits its block of every bucket; buckets whose B is no multiple of 2 are
+    padded with masked rows) writes the one-process run's table: cubic and
+    Andreasen-Huge exactly, flags too."""
+    import json
+    import pickle
+
+    from iv_interpolation_tpu_torch.parallel import dryrun
+    table = _mesh_table(interpolated)
+    with open(tmp_path / "table.pkl", "wb") as f:
+        pickle.dump(table, f)
+    surface = {"ah_grid": 33, "ah_iters": 3}
+    args = {"device": "cpu", "out": str(tmp_path), "table": str(tmp_path / "table.pkl"),
+            "methods": ["cubic_spline", "ah"], "surface": surface}
+    results = dryrun.spawn_world(2, ["-m", "iv_interpolation_tpu_torch.parallel._ranks",
+                                     "surface", json.dumps(args)], timeout_s=60, wait_s=240)
+    assert all(r["jax_free"] for r in results)
+    _, cfg = _configs(**surface)
+    for method in ("cubic_spline", "ah"):
+        store = st.MemoryStore()
+        store.write(st.INTERPOLATED, table)
+        want = task.run_surface_fit(cfg, store, method=method, device="cpu")
+        assert want["surfaces"] == 4
+        # every rank returns rank 0's summary
+        assert [r["result"][method] for r in results] == [want, want]
+        with open(tmp_path / f"surface_{method}.pkl", "rb") as f:
+            got = pickle.load(f)
+        pd.testing.assert_frame_equal(_sorted(got), _sorted(store.read(task.SURFACES)),
+                                      check_exact=True)
