@@ -44,8 +44,7 @@ Phases:
      memory): output rows/s, host seconds by phase, the device's idle
      share, peak memory; every symbol completed or skipped, row counts
      equal to the manifests', the result audits, one B2 launch a batch,
-     the first batch's symbols against a CPU run; the dispatch orders
-     (2 batches in flight against 1) in turns; at 512 symbols x 2 days a
+     the first batch's symbols against a CPU run; at 512 symbols x 2 days a
      stopped-and-resumed run and a staged ``run_all`` against the fused
      tables and a cubic run (B1 once a sub-batch); a float64 run
      (``processing.dtype="float64"``, 256 symbols in 4 batches: B2 float64
@@ -131,6 +130,19 @@ Phases:
      one-rank run's tables) and ``--task serve`` over phase 7's store
      (a client's ticks, refit, stats and stop). Two ranks on one card
      measure correctness and overhead, not scaling.
+ 13. the library entry point: (a) ``quickstart.main()``, the port's
+     library tour, on the card in float32 (B1 float32 and B2 launches
+     counted and required; each section's wall seconds, cold and warm) and
+     float64, each held to the same call on CPU tensors at
+     ``quickstart.TOLERANCES`` with flags exact; the top-level
+     ``iv_interpolation_tpu_torch.fit_eval_surface`` is the surface
+     module's and gives phase 3's output bit for bit; (b) the reference's
+     parallel cyclic reduction (``ops.tridiag.tridiag_solve_pcr``) timed
+     against B1 at every phase-2 main-path shape (CUDA graphs of 10 calls,
+     in turns) with max |PCR - B1| / max |x|; (c) the native host packer
+     built on this machine, bit-exact against NumPy at phase 6's runner
+     batch, both times. Phase 6 also fails unless its float32 run gathered
+     its rows with the native packer.
 
 ``--phases 2,9`` (development only) runs the named phases after the
 build and prints no result line. ``--mesh-rank ARGS`` is phase 12's rank
@@ -140,7 +152,9 @@ B1 and B2 are each listed twice in the kernel line, float32 and float64,
 each with its launches on every path; B2 float32's include
 ``window_candles`` and the PostgreSQL-backed run of phase 11, and the
 mesh's runner and session of phase 12 (both ranks' launches), B1
-float32's the mesh's surface task and dry run.
+float32's the mesh's surface task and dry run; phase 13 adds the
+quickstart's B1 and B2 launches (float32 and float64) and the top-level
+``fit_eval_surface``'s B1.
 
 Prints a JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -220,13 +234,12 @@ PIPELINE = dict(symbols=2048, hours=168, drop_frac=0.1, batch=256, bucket=16384,
 # ``PipelineRunner.run_pipeline_fused`` from a store of sample tickers
 # (the JAX package's generator, about 10 % dropped) to the three tables,
 # production config (float32, linear, 256 a batch, the 16,384 bucket);
-# then (d) at 512 symbols x 2 days, 64 a batch (8 batches). After the
-# main run (2 batches in flight), one run with 1 batch in flight (cut from
-# four turns, then from two: the orders have measured within their spread,
-# and the script's time went to Andreasen-Huge and RBF).
+# then (d) at 512 symbols x 2 days, 64 a batch (8 batches). The main run
+# has 2 batches in flight; the run with 1 in flight is no longer timed
+# (the two orders measured within their spread, and the script's time went
+# to later phases).
 RUNNER = dict(symbols=2048, hours=168, drop_frac=0.1, seed=16, batch=256,
               small_symbols=512, small_hours=48, small_batch=64)
-RUNNER_ORDER_TURNS = (1,)
 # phase 7, the surface task: 256 underlyings, 192 of 12 expiries x 32
 # strikes and 64 of 6 x 16, call and put (159,744 option symbols, two
 # snapshots each), about 2 % of the latest rows without iv; 32 parity
@@ -704,10 +717,10 @@ def stream_agg_cases(agg, dtype=torch.float32) -> dict:
 
 # -- phase 3: the surface step ------------------------------------------------
 
-def surface_step(surface, tridiag) -> dict:
-    from scipy.interpolate import CubicSpline
-
-    B, E, N, M = (SURFACE[x] for x in "BENM")
+def surface_inputs():
+    """Phase 3's quotes on the card, from seed 13: (k, T, clean iv, iv
+    with butterfly arbitrage, clean iv with 1e-4 noise)."""
+    B, E, N = (SURFACE[x] for x in "BEN")
     gen = torch.Generator(device=DEV).manual_seed(13)
     k_row = np.linspace(-1.0, 1.0, N, dtype=np.float32)
     T_row = np.linspace(0.05, 2.0, E, dtype=np.float32)
@@ -718,7 +731,21 @@ def surface_step(surface, tridiag) -> dict:
     iv_clean = atm + curv * k * k
     iv_bad = iv_clean + 0.08 * torch.sin(20 * k)       # butterfly arbitrage
     noise = 1e-4 * torch.randn((B, E, N), device=DEV, generator=gen)
-    iv_timed = iv_clean + noise
+    return k, T, iv_clean, iv_bad, iv_clean + noise
+
+
+def surface_digests(out: dict) -> dict:
+    """Bitwise digests of a surface step's grids and flags."""
+    return {key: digest(out[key]) for key in ("k_grid", "w_grid", "iv_grid", "g",
+                                              "butterfly_ok", "calendar_ok")}
+
+
+def surface_step(surface, tridiag) -> dict:
+    from scipy.interpolate import CubicSpline
+
+    B, E, N, M = (SURFACE[x] for x in "BENM")
+    k, T, iv_clean, iv_bad, iv_timed = surface_inputs()
+    k_row, T_row = k[0, 0].cpu().numpy(), T[0].cpu().numpy()
 
     def step(iv):
         return surface.fit_eval_surface(k, iv, T, method="cubic_spline", n_grid=M,
@@ -765,7 +792,8 @@ def surface_step(surface, tridiag) -> dict:
     log(f"  butterfly_clean_frac={clean_frac} butterfly_adversarial_frac={adv_frac} "
         f"parity_max_err={parity:.3e}")
     return {"surfaces_per_s": B / (ms / 1e3), "ms": ms, "parity_max_err": parity,
-            "butterfly_clean_frac": clean_frac, "butterfly_adversarial_frac": adv_frac}
+            "butterfly_clean_frac": clean_frac, "butterfly_adversarial_frac": adv_frac,
+            "digests": surface_digests(out)}
 
 
 # -- phase 4: the streaming refit ---------------------------------------------
@@ -1367,11 +1395,10 @@ def compare_tables_cpu(card, cpu, symbols, min_spread) -> dict:
 def host_runner(reset_counts, read_counts) -> dict:
     """Phase 6: ``PipelineRunner`` from store to store. (a) 2,048 symbols
     x 168 hourly rows through ``run_pipeline_fused`` on the card, (b) its
-    rows/s, host split, idle share and peak memory, then the dispatch
-    orders in turns; (c) the manifests, row counts, audits, one B2 launch
-    a batch, and the first batch's symbols on CPU tensors; then (d) and
-    (e). Returns the launches of the runs that count, rows/s, the store
-    and the dispatch orders' wall seconds."""
+    rows/s, host split, idle share and peak memory; (c) the manifests, row
+    counts, audits, one B2 launch a batch, the host packer, and the first
+    batch's symbols on CPU tensors; then (d) and (e). Returns the launches
+    of the runs that count, rows/s and the store."""
     from iv_interpolation_tpu_torch.config import get_config
     from iv_interpolation_tpu_torch.pipeline import check_results
     from iv_interpolation_tpu_torch.pipeline import runner as runner_mod
@@ -1387,21 +1414,20 @@ def host_runner(reset_counts, read_counts) -> dict:
     log(f"  data: {P['symbols']} symbols x {P['hours']} hours, {len(tickers):,} rows, "
         f"made in {time.perf_counter() - t0:.2f} s (host, set-up)")
 
-    def full_run(name, depth, probe_counts=False):
+    def full_run(name):
         store = make_store(st, work / name / "data")
         store.write(st.TICKERS, tickers, upsert_keys=["symbol", "date"])
         cfg = runner_config(get_config, work / name, P["batch"])
         runner = runner_mod.PipelineRunner(cfg, store)
-        runner.queue_depth = depth
+        runner.queue_depth = 2
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        if probe_counts:
-            reset_counts()
+        reset_counts()
         with DispatchProbe(runner_mod) as probe:
             t = time.perf_counter()
             res = runner.run_pipeline_fused()
             wall = time.perf_counter() - t
-        counts = read_counts() if probe_counts else None
+        counts = read_counts()
         rows = sum(res[k]["output_rows"] for k in ("task1", "bridge", "task2"))
         busy = probe.busy_ms() / 1e3
         return dict(store=store, res=res, wall=wall, rows=rows, rate=rows / wall,
@@ -1413,7 +1439,7 @@ def host_runner(reset_counts, read_counts) -> dict:
     kind = "parquet" if module_version("pyarrow") != "missing" else "memory"
     log(f"  store: {kind} (pyarrow {module_version('pyarrow')}) — the choice of store, "
         f"not of device")
-    main = full_run("main", 2, probe_counts=True)
+    main = full_run("main")
     res = main["res"]
     log(f"  (a) run_pipeline_fused, 2 batches in flight: {main['wall']:.3f} s, "
         f"{main['rows']:,} output rows, {main['rate']:,.0f} output rows/s; "
@@ -1434,6 +1460,11 @@ def host_runner(reset_counts, read_counts) -> dict:
     check(main["counts"] == {"b1": 0, "b2": main["batches"]}
           and main["batches"] == P["symbols"] // P["batch"],
           f"(c) B2 once a batch, {main['batches']} batches: {main['counts']}")
+    packer = res["packer"]
+    check(packer.get("gather native", 0) >= main["batches"] and "gather numpy" not in packer,
+          f"(c) the native host packer gathered every batch's rows: {packer}")
+    log(f"  (c) host packer: {packer}, gathers {main['host']['gather']:.3f} s of unpack "
+        f"{main['host']['unpack']:.3f} s")
     audit1 = check_results.check_interpolation_results(store)
     audit2 = check_results.check_candle_results(store)
     sample = check_results.compare_minute_vs_reconstructed(store, n=12)
@@ -1455,22 +1486,13 @@ def host_runner(reset_counts, read_counts) -> dict:
         f"{time.perf_counter() - t:.1f} s")
     compare_tables_cpu(store, cpu_store, first, cpu_cfg.data_bridge.min_spread_percent)
     del cpu_store
-    # the dispatch orders in turns after the main run (2 batches in flight)
-    order = {}
-    for i, depth in enumerate(RUNNER_ORDER_TURNS):
-        run = full_run(f"order{i}", depth)
-        order.setdefault(depth, []).append(run)
-        log(f"  (b) {depth} batch{'es' if depth > 1 else ''} in flight: {run['wall']:.3f} s, "
-            f"{run['rate']:,.0f} output rows/s, idle share {run['idle']:.1%}")
-        shutil.rmtree(work / f"order{i}", ignore_errors=True)
     shutil.rmtree(work / "main", ignore_errors=True)
     small = runner_small_scale(work, reset_counts, read_counts)
     f64 = runner_float64(work, reset_counts)
     runner_cli(root, work)
     shutil.rmtree(work, ignore_errors=True)
     return {"launches": {k: main["counts"][k] + small[k] for k in main["counts"]},
-            "b2_f64_launches": f64, "rows_per_s": main["rate"], "store": kind,
-            "order_s": {d: [round(r["wall"], 3) for r in runs] for d, runs in order.items()}}
+            "b2_f64_launches": f64, "rows_per_s": main["rate"], "store": kind}
 
 
 def runner_small_scale(work, reset_counts, read_counts) -> dict:
@@ -3914,6 +3936,218 @@ def mesh_phase(root: Path, store7) -> dict:
     return {**launches, "world_s": world_s, "sequence": world_one, "cli": cli}
 
 
+# -- phase 13: the library entry point ------------------------------------------
+
+# (b) PCR against B1 at phase 2's main-path shapes; the n=48 run is skipped
+# when its temporaries (about 10 full-size arrays a level) would pass this
+PCR_CAP_BYTES = 40e9
+# (c) the native host packer at phase 6's runner batch: 256 symbols x 8
+# columns x the 16,384-minute bucket, 168 hourly observations a symbol
+# (about 10 % dropped) spread over 10,021 valid minutes; 8 batches make
+# phase 6's 2,048 symbols
+PACKER = dict(B=256, C=8, L=16384, valid=10021, hours=168, drop=0.1, batches=8,
+              reps=3, seed=29)
+
+
+def quickstart_phase(reset_counts, read_by_dtype, surface_ref) -> dict:
+    """Phase 13 (a): the library tour ``quickstart.main()`` on the card in
+    float32 (launches counted: B1 float32 and B2 must both run) and again
+    warm, then in float64; each dtype held section by section to the same
+    call on CPU tensors at ``quickstart.TOLERANCES`` (flags exact). The
+    top-level ``fit_eval_surface`` is the surface module's function and
+    gives phase 3's output bit for bit at 32768 x 30 x 50 (``surface_ref``:
+    phase 3's digests, or None to compute them here)."""
+    import iv_interpolation_tpu_torch as top
+    from iv_interpolation_tpu_torch import quickstart
+    from iv_interpolation_tpu_torch.surface import surface as surf
+
+    check(top.fit_eval_surface is surf.fit_eval_surface,
+          "(a) the top-level fit_eval_surface is surface.surface.fit_eval_surface")
+    out = {"seconds": {}, "launches": {}}
+    for dtype in ("float32", "float64"):
+        reset_counts()
+        t = time.perf_counter()
+        card = quickstart.main(device=DEV, dtype=dtype, verbose=False)
+        wall = time.perf_counter() - t
+        out["launches"][dtype] = read_by_dtype()
+        out["seconds"][dtype] = card["seconds"]
+        log(f"  (a) quickstart {dtype} on the card: {wall:.2f} s, sections s "
+            + ", ".join(f"{k} {v:.3f}" for k, v in card["seconds"].items())
+            + f"; launches {out['launches'][dtype]}")
+        if dtype == "float32":
+            check(out["launches"][dtype]["b1_f32"] > 0 and out["launches"][dtype]["b2"] > 0,
+                  f"(a) the quickstart launched B1 float32 and B2: {out['launches'][dtype]}")
+            warm = quickstart.main(device=DEV, dtype=dtype, verbose=False)
+            out["seconds"]["float32 warm"] = warm["seconds"]
+            log("  (a) quickstart float32 again (warm): sections s "
+                + ", ".join(f"{k} {v:.3f}" for k, v in warm["seconds"].items()))
+        t = time.perf_counter()
+        cpu = quickstart.main(device="cpu", dtype=dtype, verbose=False)
+        log(f"  (a) the same on CPU tensors: {time.perf_counter() - t:.2f} s")
+        got, want = quickstart.arrays(card), quickstart.arrays(cpu)
+        check(set(got) == set(want), f"(a) the same sections ran: {sorted(got)} / {sorted(want)}")
+        gaps = {sec: quickstart.hold(got[sec], want[sec], dtype, sec)
+                for sec in got if sec != "flight"}
+        if "flight" in got:
+            fl_rows, refit = got["flight"], got["streaming"]
+            check(np.array_equal(fl_rows["realized_vol"], refit["realized_vol"].astype(np.float64))
+                  and all(np.array_equal(fl_rows[f], refit[f])
+                          for f in ("butterfly_ok", "calendar_ok")),
+                  f"(a) {dtype}: the Flight table is the session's refit")
+        worst = {sec: max((v for v in g.values()), default=0.0) for sec, g in gaps.items()}
+        log(f"  (a) {dtype} card vs CPU tensors, largest gap a section (flags: count apart): "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items()))
+        del card, cpu, got, want
+    # the top-level entry point at phase 3's shape, bit for bit
+    k, T, iv_clean, _, _ = surface_inputs()
+    M = SURFACE["M"]
+    if surface_ref is None:
+        surface_ref = surface_digests(surf.fit_eval_surface(
+            k, iv_clean, T, method="cubic_spline", n_grid=M, spline_bc="not-a-knot"))
+    reset_counts()
+    res = top.fit_eval_surface(k, iv_clean, T, method="cubic_spline", n_grid=M,
+                               spline_bc="not-a-knot")
+    torch.cuda.synchronize()
+    out["launches"]["top-level"] = read_by_dtype()
+    mine = surface_digests(res)
+    check(mine == surface_ref, f"(a) top-level fit_eval_surface = phase 3's output bit for "
+          f"bit at 32768 x 30 x 50: {mine} / {surface_ref}")
+    log(f"  (a) top-level fit_eval_surface at {SURFACE['B']} x {SURFACE['E']} x {SURFACE['N']}: "
+        f"phase 3's output bit for bit; launches {out['launches']['top-level']}")
+    del k, T, iv_clean, res
+    torch.cuda.empty_cache()
+    return out
+
+
+def pcr_phase(tridiag, ops_tridiag) -> list:
+    """Phase 13 (b): the reference's parallel cyclic reduction
+    (``ops.tridiag.tridiag_solve_pcr``, plain tensor code) against B1 at
+    every main-path shape of phase 2 on phase 2's systems: ms of each from
+    CUDA graphs of 10 calls, in turns (B1, PCR, PCR, B1), and
+    max |PCR - B1| / max |x|. B1's launches here count on no path."""
+    import math
+
+    gen = torch.Generator(device=DEV).manual_seed(30)
+    rows = []
+    for (n, batch, dtype), what in B1_MAIN.items():
+        levels = math.ceil(math.log2(n))
+        elsize = torch.empty((), dtype=dtype).element_size()
+        temp = levels * 10 * n * batch * elsize
+        if temp > PCR_CAP_BYTES:
+            log(f"  (b) PCR n={n} batch={batch} {str(dtype)[6:]}: not run, {levels} levels x "
+                f"10 arrays of {n * batch * elsize / 1e9:.2f} GB = {temp / 1e9:.1f} GB of "
+                f"temporaries > {PCR_CAP_BYTES / 1e9:.0f} GB")
+            continue
+        if (n, batch) in B1_AH:
+            dl, d, du, b = ah_systems(n, batch, dtype, gen)
+        else:
+            u = lambda lo, hi: torch.empty((n, batch), dtype=dtype, device=DEV).uniform_(
+                lo, hi, generator=gen)
+            d, dl, du = u(4.0, 6.0), u(-1.0, 1.0), u(-1.0, 1.0)
+            b = torch.randn((n, batch), dtype=dtype, device=DEV, generator=gen)
+        x = tridiag.tridiag_solve_cuda(dl, d, du, b)
+        x_pcr = ops_tridiag.tridiag_solve_pcr(dl, d, du, b)
+        torch.cuda.synchronize()
+        scale = float(x.abs().max())
+        err = float((x_pcr - x).abs().max()) / scale
+        check(bool(torch.isfinite(x_pcr).all()), f"(b) PCR finite at n={n} batch={batch}")
+        b1 = lambda: tridiag.tridiag_solve_cuda(dl, d, du, b)
+        pcr = lambda: ops_tridiag.tridiag_solve_pcr(dl, d, du, b)
+        torch.cuda.reset_peak_memory_stats()
+        turns = [device_ms(f, 10, CALLS) for f in (b1, pcr, pcr, b1)]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        row = {"shape": f"B1 {what} n={n} batch={batch} {str(dtype)[6:]}",
+               "b1_ms": (turns[0] + turns[3]) / 2, "pcr_ms": (turns[1] + turns[2]) / 2,
+               "turns": [round(t, 5) for t in turns], "levels": levels,
+               "max_rel_gap": err, "peak_gib": peak}
+        row["pcr_over_b1"] = row["pcr_ms"] / row["b1_ms"]
+        log(f"  (b) {row['shape']}: B1 {row['b1_ms']:.4f} ms, PCR {row['pcr_ms']:.4f} ms "
+            f"({levels} levels, {row['pcr_over_b1']:.1f}x B1), max|PCR-B1|/max|x| "
+            f"{err:.3e}, peak {peak:.2f} GiB")
+        rows.append(row)
+        del dl, d, du, b, x, x_pcr
+        torch.cuda.empty_cache()
+    return rows
+
+
+def packer_phase() -> dict:
+    """Phase 13 (c): the native host packer on this machine, at phase 6's
+    runner batch (256 x 8 x 16,384 float32 grids): ``gather_unpack`` of
+    every valid row (the runner's unpack gather) and ``scatter_pack`` of
+    the hourly observations (a dense batch's host scatter), each bit-exact
+    against NumPy's fancy indexing, with both times (median of ``reps``)
+    for one batch and for phase 6's 8."""
+    from iv_interpolation_tpu_torch import native
+    from iv_interpolation_tpu_torch.pipeline import ingest
+
+    P = PACKER
+    check(native.native_available(),
+          f"(c) the native packer builds on the card's host: {native.build_error}")
+    rng = np.random.default_rng(P["seed"])
+    B, C, L = P["B"], P["C"], P["L"]
+    grids = rng.normal(size=(B, C, L)).astype(np.float32)
+    grids[:, 2, ::17] = np.nan
+    valid = np.zeros((B, L), bool)
+    valid[:, :P["valid"]] = True
+    sel_b, sel_pos = np.nonzero(valid)
+    hours = np.arange(P["hours"]) * 60
+    keep = rng.uniform(size=(B, P["hours"])) >= P["drop"]
+    row_sym, hour = np.nonzero(keep)
+    row_pos = hours[hour].astype(np.int64)
+    colmat = rng.normal(size=(len(row_sym), C)).astype(np.float32)
+
+    def timed(fn):
+        times, out = [], None
+        for _ in range(P["reps"]):
+            t = time.perf_counter()
+            out = fn()
+            times.append(time.perf_counter() - t)
+        return float(np.median(times)), out
+
+    native_s, rows = timed(lambda: native.gather_unpack(grids, sel_b, sel_pos))
+    numpy_s, rows_np = timed(lambda: grids[sel_b, :, sel_pos])
+    check(rows is not None and np.array_equal(rows.view(np.uint32), rows_np.view(np.uint32)),
+          "(c) gather_unpack bit-exact against NumPy")
+
+    def scatter(use_native):
+        values, mask = ingest.full_nan((B, C, L), np.float32), np.zeros((B, L), bool)
+        if use_native:
+            check(native.scatter_pack(colmat, row_sym.astype(np.int32), row_pos,
+                                      np.ones(len(row_pos), np.uint8), values, mask),
+                  "(c) scatter_pack ran natively")
+        else:
+            values[row_sym, :, row_pos] = colmat
+            mask[row_sym, row_pos] = True
+        return values, mask
+
+    scat_native_s, (v_n, m_n) = timed(lambda: scatter(True))
+    scat_numpy_s, (v_p, m_p) = timed(lambda: scatter(False))
+    check(np.array_equal(v_n.view(np.uint32), v_p.view(np.uint32)) and np.array_equal(m_n, m_p),
+          "(c) scatter_pack bit-exact against NumPy")
+    out = {"rows": len(sel_b), "obs": len(row_sym), "gather_native_s": native_s,
+           "gather_numpy_s": numpy_s, "scatter_native_s": scat_native_s,
+           "scatter_numpy_s": scat_numpy_s, "batches": P["batches"]}
+    log(f"  (c) native packer ({native.library_path().name}) at {B} x {C} x {L} float32, one "
+        f"batch: gather of {len(sel_b):,} rows native {native_s * 1e3:.1f} ms, NumPy "
+        f"{numpy_s * 1e3:.1f} ms ({numpy_s / native_s:.2f}x); scatter of {len(row_sym):,} "
+        f"observations (with the NaN fill) native {scat_native_s * 1e3:.1f} ms, NumPy "
+        f"{scat_numpy_s * 1e3:.1f} ms; phase 6's {P['batches']} batches: gathers "
+        f"{native_s * P['batches']:.3f} s native against {numpy_s * P['batches']:.3f} s NumPy; "
+        f"bit-exact")
+    return out
+
+
+def library_phase(reset_counts, read_by_dtype, tridiag, ops_tridiag, surface_ref) -> dict:
+    """Phase 13: (a) the quickstart and the top-level entry point, (b) PCR
+    against B1, (c) the native host packer."""
+    t0 = time.perf_counter()
+    quick = quickstart_phase(reset_counts, read_by_dtype, surface_ref)
+    pcr = pcr_phase(tridiag, ops_tridiag)
+    packer = packer_phase()
+    log(f"  phase 13 took {time.perf_counter() - t0:.1f} s")
+    return {"quick": quick, "pcr": pcr, "packer": packer}
+
+
 def parse_phases(argv) -> set | None:
     """``--phases 2,9``: the phases a development run keeps (phase 1, the
     build, always runs). None, the default, runs them all."""
@@ -4034,8 +4268,7 @@ def main(argv=()) -> int:
         log("phase 6: the host runner")
         log(f"  card: {smi.splitlines()[0]}")
         host = host_runner(reset_counts, read_counts)
-        log(f"  launches: {host['launches']}, B2 float64 {host['b2_f64_launches']}; dispatch "
-            f"orders, wall s by batches in flight: {host['order_s']}")
+        log(f"  launches: {host['launches']}, B2 float64 {host['b2_f64_launches']}")
         done(6)
         check(tridiag.tridiag_solve_cuda.launches_by_dtype["float64"] == 0,
               "phases 3-6 solve in float32 only")
@@ -4099,6 +4332,12 @@ def main(argv=()) -> int:
         log(f"  launches on the mesh paths (both ranks): "
             f"{ {k: v for k, v in meshed.items() if k.endswith(('_b1', '_b2'))} }")
         done(12)
+    if want(13):
+        log("phase 13: the library entry point")
+        log(f"  card: {smi.splitlines()[0]}")
+        library = library_phase(reset_counts, read_by_dtype, tridiag, ops_tridiag,
+                                surf["digests"] if want(3) else None)
+        done(13)
     shutil.rmtree(surface_work(), ignore_errors=True)
     if only is not None:
         log(f"partial run of phases {sorted(only)}: no result line")
@@ -4120,7 +4359,9 @@ def main(argv=()) -> int:
         f"{rbf_res['reduced']['surfaces_per_s']:,.1f} (c=512) surfaces/s, surface task "
         + ", ".join(f"{m} {fam[m]['surfaces_per_s']:,.1f}" for m in FAMILY_RUNS)
         + f" surfaces/s; autolam {operator['autolam_ms']:.1f} ms at 1,024 x 30 x 8 penalties"
-        f"; all phases done at {time.perf_counter() - t_start:.1f} s")
+        f"; quickstart float32 sections s "
+        + ", ".join(f"{k} {v:.3f}" for k, v in library["quick"]["seconds"]["float32 warm"].items())
+        + f"; all phases done at {time.perf_counter() - t_start:.1f} s")
     b2["max_abs_err"] = max(b2["max_abs_err"], checks["b2_err"])
 
     # launches on each main path, by kernel (phases 3-6 solve in float32;
@@ -4133,9 +4374,14 @@ def main(argv=()) -> int:
             "AH fit_eval + eval_ah (phase 10)": ah_res["b1_f32"],
             "AH surface task (phase 10)": fam["launches"]["b1_f32"],
             "mesh surface task (phase 12)": meshed["surface_b1"],
-            "mesh dry run (phase 12)": meshed["dryrun_b1"]},
+            "mesh dry run (phase 12)": meshed["dryrun_b1"],
+            "quickstart (phase 13)": library["quick"]["launches"]["float32"]["b1_f32"],
+            "top-level fit_eval_surface (phase 13)":
+                library["quick"]["launches"]["top-level"]["b1_f32"]},
         "tridiag_thomas_f64": {"surface task parity (phase 7)": surf_task["launches"]["b1_f64"],
-                               "AH float64 fit (phase 10)": ah_res["b1_f64"]},
+                               "AH float64 fit (phase 10)": ah_res["b1_f64"],
+                               "quickstart float64 (phase 13)":
+                                   library["quick"]["launches"]["float64"]["b1_f64"]},
         "stream_agg": {
             "streaming (phase 4)": surface_stream["b2"], "fused_batch (phase 5)": fused["b2"],
             "runner (phase 6)": host["launches"]["b2"],
@@ -4144,7 +4390,9 @@ def main(argv=()) -> int:
             "postgres-backed run (phase 11)": operator["postgres"],
             "shard proofs' reference runs (phase 11)": operator["shard_reference"],
             "mesh runner (phase 12)": meshed["runner_b2"],
-            "mesh session (phase 12)": meshed["session_b2"]},
+            "mesh session (phase 12)": meshed["session_b2"],
+            "quickstart (phase 13)": library["quick"]["launches"]["float32"]["b2"],
+            "quickstart float64 (phase 13)": library["quick"]["launches"]["float64"]["b2"]},
         "stream_agg_f64": {"float64 pipeline (phase 6)": host["b2_f64_launches"]},
     }
     check(all(n > 0 for n in paths["tridiag_thomas_f64"].values())
@@ -4157,10 +4405,14 @@ def main(argv=()) -> int:
           and paths["stream_agg_f64"]["float64 pipeline (phase 6)"] > 0
           and paths["tridiag_thomas_f32"]["mesh surface task (phase 12)"] > 0
           and paths["stream_agg"]["mesh runner (phase 12)"] > 0
-          and paths["stream_agg"]["mesh session (phase 12)"] > 0,
+          and paths["stream_agg"]["mesh session (phase 12)"] > 0
+          and paths["tridiag_thomas_f32"]["quickstart (phase 13)"] > 0
+          and paths["tridiag_thomas_f32"]["top-level fit_eval_surface (phase 13)"] > 0
+          and paths["stream_agg"]["quickstart (phase 13)"] > 0,
           f"B1 float32 and float64 ran on the surface task and the AH paths, B2 on the served "
           f"refits, window_candles and the postgres-backed run and, in float64, on the "
-          f"float64 pipeline; B1 on the mesh's surface task, B2 on its runner and session: "
+          f"float64 pipeline; B1 on the mesh's surface task, B2 on its runner and session; "
+          f"B1 and B2 in the quickstart: "
           f"{paths}")
     thomas = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/tridiag_thomas.cu",
                   replaces="iv_interpolation_tpu/ops/pallas/tridiag_pallas.py:57")

@@ -1,6 +1,8 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-The sources are ``csrc/*.cu`` (and any ``*.cuh``) in this package. On
+The sources are ``csrc/*.cu`` (and any ``*.cuh``) in this package
+(``csrc/packer.cpp`` is host code, built by ``native`` with the host's
+C++ compiler). On
 first use, :func:`load_library` compiles them with ``nvcc`` for Hopper
 (``sm_90a``), one ``nvcc`` a source, all started together, and links the
 objects into one shared library with a plain C interface under

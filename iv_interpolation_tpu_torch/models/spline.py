@@ -22,11 +22,16 @@ import torch
 
 from iv_interpolation_tpu_torch.models._slicewise import slicewise_local_vol, slicewise_model
 from iv_interpolation_tpu_torch.models.base import SurfaceModel
-from iv_interpolation_tpu_torch.ops.cubic_spline import (
+from iv_interpolation_tpu_torch.ops.cubic_spline import (  # noqa: F401  (public math)
     eval_cubic_spline,
     eval_cubic_spline_deriv,
     eval_cubic_spline_second_deriv,
     fit_cubic_spline,
+    fit_eval_smile,
+)
+from iv_interpolation_tpu_torch.ops.spline_matrix import (  # noqa: F401  (public math)
+    build_surface_operators,
+    fit_eval_surface_grid,
 )
 from iv_interpolation_tpu_torch.surface.arbitrage import arbitrage_flags, butterfly_g
 

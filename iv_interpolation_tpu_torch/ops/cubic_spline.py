@@ -15,14 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from iv_interpolation_tpu_torch.ops.tridiag import tridiag_solve
-
-
-def _solve_batch_last(dl, d, du, b):
-    """Tridiagonal solve for ``(..., n)`` coefficient tensors."""
-    to_sys = lambda a: torch.movedim(a, -1, 0)
-    M = tridiag_solve(to_sys(dl), to_sys(d), to_sys(du), to_sys(b))
-    return torch.movedim(M, 0, -1)
+from iv_interpolation_tpu_torch.ops.tridiag import tridiag_solve_batch_last
 
 
 def fit_cubic_spline(x: torch.Tensor, y: torch.Tensor, bc_type: str = "natural",
@@ -54,7 +47,7 @@ def fit_cubic_spline(x: torch.Tensor, y: torch.Tensor, bc_type: str = "natural",
 
     if bc_type == "natural":
         one = torch.ones_like(h[..., :1])
-        return _solve_batch_last(
+        return tridiag_solve_batch_last(
             cat(zero, h[..., :-1] / 6.0, zero),
             cat(one, (h[..., :-1] + h[..., 1:]) / 3.0, one),
             cat(zero, h[..., 1:] / 6.0, zero),
@@ -66,7 +59,7 @@ def fit_cubic_spline(x: torch.Tensor, y: torch.Tensor, bc_type: str = "natural",
         batch = x.shape[:-1]
         fp0 = torch.as_tensor(fp0, dtype=dtype, device=x.device).broadcast_to(batch)
         fpn = torch.as_tensor(fpn, dtype=dtype, device=x.device).broadcast_to(batch)
-        return _solve_batch_last(
+        return tridiag_solve_batch_last(
             cat(zero, h[..., :-1] / 6.0, h[..., -1:] / 6.0),
             cat(h[..., :1] / 3.0, (h[..., :-1] + h[..., 1:]) / 3.0,
                 h[..., -1:] / 3.0),
@@ -93,7 +86,7 @@ def fit_cubic_spline(x: torch.Tensor, y: torch.Tensor, bc_type: str = "natural",
         du1 = du[..., 0:1] - dl[..., 0:1] * h0 / h1
         dn = d[..., -1:] + du[..., -1:] * (hm1 + hm2) / hm2
         dln = dl[..., -1:] - du[..., -1:] * hm1 / hm2
-        M_int = _solve_batch_last(
+        M_int = tridiag_solve_batch_last(
             cat(torch.zeros_like(d1), dl[..., 1:-1], dln),
             cat(d1, d[..., 1:-1], dn),
             cat(du1, du[..., 1:-1], torch.zeros_like(dn)),
@@ -174,3 +167,10 @@ def eval_cubic_spline_second_deriv(x, y, M, t):
     x1, M1 = _gather_knots(idx + 1, x, M)
     hh = x1 - x0
     return ((x1 - t) * M0 + (t - x0) * M1) / hh
+
+
+def fit_eval_smile(x, y, t, bc_type: str = "natural"):
+    """Fit then evaluate a batch of smiles: S(t) of the splines through
+    ``(x, y)``, shape ``(..., m)``."""
+    M = fit_cubic_spline(x, y, bc_type=bc_type)
+    return eval_cubic_spline(x, y, M, t)

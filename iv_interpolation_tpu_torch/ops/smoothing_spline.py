@@ -19,8 +19,7 @@ Parity oracle: ``scipy.interpolate.make_smoothing_spline`` with explicit
 ``lam``. lam = 0 recovers the interpolating natural spline.
 ``fit_smoothing_spline_autolam`` picks per slice the smallest of a list
 of penalties whose fit is butterfly-free, with all the penalties one
-batch of dense solves. The reference's fused fit+eval has no caller in
-either package and is not ported.
+batch of dense solves.
 """
 
 from __future__ import annotations
@@ -87,6 +86,12 @@ def eval_smoothing_spline_derivs(fit: SmoothingFit, t: torch.Tensor):
     return (eval_cubic_spline(fit.x, fit.g, fit.M, t),
             eval_cubic_spline_deriv(fit.x, fit.g, fit.M, t),
             eval_cubic_spline_second_deriv(fit.x, fit.g, fit.M, t))
+
+
+def fit_eval_smoothed_smile(k: torch.Tensor, w: torch.Tensor, lam,
+                            t: torch.Tensor) -> torch.Tensor:
+    """Smoothing fit then evaluation for a batch of (noisy) smiles."""
+    return eval_smoothing_spline(fit_smoothing_spline(k, w, lam), t)
 
 
 def fit_smoothing_spline_autolam(k: torch.Tensor, w: torch.Tensor, lams,

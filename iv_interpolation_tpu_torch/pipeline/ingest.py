@@ -20,12 +20,16 @@ host.
 
 from __future__ import annotations
 
+import threading
+import time
+from collections import Counter
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import pandas as pd
 
+from iv_interpolation_tpu_torch import native
 from iv_interpolation_tpu_torch.utils import batch_pad, choose_bucket
 
 INTERP_COLS = ("iv", "underlying_price", "time_to_maturity")
@@ -34,6 +38,28 @@ FFILL_COLS = ("interest_rate", "mark_price", "index_price", "volume",
 ALL_COLS = INTERP_COLS + FFILL_COLS
 
 _MINUTE_NS = 60_000_000_000
+
+
+#: host packing calls and their seconds, keyed by operation and packer
+#: ("scatter native", "gather numpy", ...): float32 takes the native packer
+#: where it builds, NumPy otherwise and for float64. The runner reports the
+#: calls of a run under ``packer`` and the gathers' seconds in ``host_s``.
+PACKER_CALLS: Counter = Counter()
+PACKER_SECONDS: Counter = Counter()
+_packer_lock = threading.Lock()
+
+
+def packer_snapshot():
+    """Copies of (PACKER_CALLS, PACKER_SECONDS), taken together."""
+    with _packer_lock:
+        return PACKER_CALLS.copy(), PACKER_SECONDS.copy()
+
+
+def _count(op: str, ran_native: bool, t0: float) -> None:
+    key = f"{op} {'native' if ran_native else 'numpy'}"
+    with _packer_lock:
+        PACKER_CALLS[key] += 1
+        PACKER_SECONDS[key] += time.perf_counter() - t0
 
 
 def full_nan(shape, dtype) -> np.ndarray:
@@ -88,17 +114,32 @@ class PackedBatch:
         if self.values is not None:
             return self
         B, L = self.batch_padded, self.bucket_len
-        values = full_nan((B, len(self.columns), L), self.obs_vals.dtype)
-        obs_mask = np.zeros((B, L), bool)
-        real = self.obs_row < B
-        r, p = self.obs_row[real], self.obs_pos[real]
-        values[r, :, p] = self.obs_vals[real]
-        obs_mask[r, p] = True
+        values, obs_mask = scatter_rows(self.obs_vals, self.obs_row, self.obs_pos, B, L)
         timeline_mask = (np.arange(L)[None, :]
                          < np.asarray(self.valid_len)[:, None])
         self.values, self.obs_mask, self.timeline_mask = (
             values, obs_mask, timeline_mask)
         return self
+
+
+def scatter_rows(obs_vals: np.ndarray, obs_row: np.ndarray, obs_pos: np.ndarray,
+                 B: int, L: int):
+    """Dense (B, C, L) grids, NaN where nothing landed, and the (B, L)
+    observation mask from compact observations (N, C) at rows ``obs_row``
+    and slots ``obs_pos``; entries with a row outside [0, B) are padding
+    and dropped. The native packer scatters float32 where it builds."""
+    t0 = time.perf_counter()
+    values = full_nan((B, obs_vals.shape[1], L), obs_vals.dtype)
+    obs_mask = np.zeros((B, L), bool)
+    real = (obs_row >= 0) & (obs_row < B)
+    r, p = obs_row[real], obs_pos[real]
+    ran = native.scatter_pack(obs_vals[real], r, p, np.ones(len(p), np.uint8),
+                              values, obs_mask)
+    if not ran:
+        values[r, :, p] = obs_vals[real]
+        obs_mask[r, p] = True
+    _count("scatter", ran, t0)
+    return values, obs_mask
 
 
 @dataclass
@@ -267,8 +308,16 @@ def pack_symbols(df: pd.DataFrame, bucket_sizes: Sequence[int],
 
 def gather_rows(grids: np.ndarray, sel_b: np.ndarray,
                 sel_pos: np.ndarray) -> np.ndarray:
-    """(B, C, L) grids -> (N, C) rows at (sel_b, sel_pos)."""
-    return grids[sel_b, :, sel_pos]
+    """(B, C, L) grids -> (N, C) rows at (sel_b, sel_pos): the native
+    packer's one sweep for float32 where it builds, else NumPy fancy
+    indexing."""
+    t0 = time.perf_counter()
+    out = native.gather_unpack(grids, sel_b, sel_pos)
+    ran = out is not None
+    if not ran:
+        out = grids[sel_b, :, sel_pos]
+    _count("gather", ran, t0)
+    return out
 
 
 def unpack_interpolated(batch: PackedBatch, filled: np.ndarray,

@@ -94,15 +94,8 @@ def _host_grids(batch):
     compact form when the batch has no dense grids."""
     if batch.values is not None:
         return np.asarray(batch.values), np.asarray(batch.obs_mask)
-    B, L, C = len(batch.t0_minutes), batch.bucket_len, len(batch.columns)
-    values = np.empty((B, C, L), batch.obs_vals.dtype)
-    values[...] = np.nan
-    obs_mask = np.zeros((B, L), bool)
-    keep = (batch.obs_row >= 0) & (batch.obs_row < B)
-    r, p = batch.obs_row[keep], batch.obs_pos[keep]
-    values[r, :, p] = batch.obs_vals[keep]
-    obs_mask[r, p] = True
-    return values, obs_mask
+    return ingest.scatter_rows(batch.obs_vals, batch.obs_row, batch.obs_pos,
+                               len(batch.t0_minutes), batch.bucket_len)
 
 
 def _split_by_obs_count(batch: ingest.PackedBatch,
@@ -496,7 +489,8 @@ class PipelineRunner:
         # symbols stay 'pending' in the manifest for --resume
         self.stop_requested = False
         # host seconds by phase of the fused path: read_pack, dispatch,
-        # readback, unpack, write (the writer thread's)
+        # readback, unpack, write (the writer thread's), and gather (the
+        # host packer's row gathers, a part of unpack)
         self.host_s: Dict[str, float] = defaultdict(float)
 
     def request_stop(self) -> None:
@@ -1197,6 +1191,7 @@ class PipelineRunner:
                               ["symbol", "timestamp", "frequency"]),
             ], record_completions))
 
+        packed_before = ingest.packer_snapshot()
         try:
             for batch in self._iter_packed_batches(symbols, skip_all,
                                                    start_date, end_date):
@@ -1218,7 +1213,13 @@ class PipelineRunner:
                 writer.shutdown(wait=True)
                 for m in manifests.values():
                     m.flush()
-        out = {**summaries(), "step_metrics": self.metrics.summary(), "fused": True}
+        # which host packer ran (calls by operation and packer), and the
+        # gathers' share of the unpack seconds
+        calls, seconds = (now - then for now, then in
+                          zip(ingest.packer_snapshot(), packed_before))
+        self.host_s["gather"] += sum(v for k, v in seconds.items() if k.startswith("gather"))
+        out = {**summaries(), "step_metrics": self.metrics.summary(), "fused": True,
+               "packer": dict(calls)}
         if self.mesh is not None:
             out["world"] = self.world_report()
         self.metrics.snapshot(f"fused_{manifests['interpolation'].batch_id}")
