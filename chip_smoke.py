@@ -143,6 +143,18 @@ Phases:
      built on this machine, bit-exact against NumPy at phase 6's runner
      batch, both times. Phase 6 also fails unless its float32 run gathered
      its rows with the native packer.
+ 14. the bench harness: (a) ``python -m iv_interpolation_tpu_torch.bench``
+     at full size in a subprocess (its state file under ``build/``): the
+     one line parses with bench.py's keys and no incomplete metric, names
+     the card and its power limit, the clean butterfly fraction is 1.0 and
+     the adversarial one <= 0.05, the fast path within 5e-6 of SciPy and
+     parity mode within 1e-9, AH all arbitrage-free, B1 float64 launched
+     in the parity stage, B1 float32 in the AH stage and B2 in the
+     streaming stage (the state file's counts); each stage's value, host
+     and event medians and peak memory, beside phases 3, 4, 9 and 10's
+     figures at the same shapes; (b) ``graft_entry.entry()``'s forward
+     step once on the card (B1 float32), held to the same step on CPU
+     tensors.
 
 ``--phases 2,9`` (development only) runs the named phases after the
 build and prints no result line. ``--mesh-rank ARGS`` is phase 12's rank
@@ -154,7 +166,9 @@ each with its launches on every path; B2 float32's include
 mesh's runner and session of phase 12 (both ranks' launches), B1
 float32's the mesh's surface task and dry run; phase 13 adds the
 quickstart's B1 and B2 launches (float32 and float64) and the top-level
-``fit_eval_surface``'s B1.
+``fit_eval_surface``'s B1; phase 14 the bench's parity (B1 float64), AH
+(B1 float32) and streaming (B2) stages, counted in the bench's own
+process, and the entry point's B1.
 
 Prints a JSON line of per-kernel results, then as the last line
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -167,6 +181,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import time
@@ -191,20 +206,22 @@ DEV = "cuda"
 # at 512 and 8,192 are Andreasen-Huge's step and tangent solves at its
 # bench shape (512 surfaces x 16 quotes, surface.ah_grid = 257): the
 # staged route in float32, the global-scratch route in float64, on the
-# rows of its own step systems (B1_AH).
+# rows of its own step systems (B1_AH). n=48 at 983,040 in float64 is the
+# bench's parity stage (32768 x 30 smiles in parity mode).
 F32, F64 = torch.float32, torch.float64
 B1_MAIN = {(48, 983_040, F32): "surface step", (166, 768, F32): "cubic batch",
            (30, 3072, F32): "surface task 192x16", (14, 512, F32): "surface task 64x8",
            (30, 3072, F64): "surface task parity 192x16",
            (14, 512, F64): "surface task parity 64x8",
            (257, 512, F32): "AH step", (257, 8192, F32): "AH tangents",
-           (257, 512, F64): "AH step", (257, 8192, F64): "AH tangents"}
+           (257, 512, F64): "AH step", (257, 8192, F64): "AH tangents",
+           (48, 983_040, F64): "bench parity"}
 B1_AH = {(257, 512), (257, 8192)}
 B1_CASES = ((48, 983_040, F32, 1.0), (166, 768, F32, 1.0),
             (30, 3072, F32, 1.0), (14, 512, F32, 1.0),
             (30, 3072, F64, 1.0), (14, 512, F64, 1.0),
             (257, 512, F32, 1.0), (257, 8192, F32, 1.0),
-            (257, 512, F64, 1.0), (257, 8192, F64, 1.0),
+            (257, 512, F64, 1.0), (257, 8192, F64, 1.0), (48, 983_040, F64, 1.0),
             (6, 512, F64, 1.0), (6, 3072, F64, 1.0), (14, 3072, F64, 1.0),
             (30, 512, F64, 1.0), (62, 512, F64, 1.0), (62, 3072, F64, 1.0),
             (50, 4096, F64, 1.0), (50, 1000, F32, 1.0),
@@ -4148,6 +4165,120 @@ def library_phase(reset_counts, read_by_dtype, tridiag, ops_tridiag, surface_ref
     return {"quick": quick, "pcr": pcr, "packer": packer}
 
 
+# -- phase 14: the bench harness -------------------------------------------------
+
+# the keys of bench.py's line (``_assemble``), which the port's line keeps
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "batch", "device",
+              "parity_max_err_vs_x64_oracle", "parity_fast_f32_max_err",
+              "butterfly_clean_frac", "butterfly_adversarial_frac", "extra_metrics")
+BENCH = dict(seed=14, timeout=900, attempt=600)
+
+
+def bench_work() -> Path:
+    return Path(__file__).resolve().parent / "build" / "chip_smoke_bench"
+
+
+def run_bench(root: Path) -> tuple[dict, dict, float]:
+    """The harness at full size in its own process group: (the line, the
+    state file, wall seconds). Its stage lines go to this log; its whole
+    stderr to ``build/chip_smoke_bench/bench.err``."""
+    work = bench_work()
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    state = work / "state.json"
+    env = dict(os.environ, IVTPU_BENCH_STATE=str(state), IVTPU_BENCH_ATTEMPT_S=str(BENCH["attempt"]),
+               PYTHONPATH=os.pathsep.join(p for p in (str(root), os.environ.get("PYTHONPATH")) if p))
+    for k in ("IVTPU_BENCH_SMOKE", "IVTPU_BENCH_ROLE"):
+        env.pop(k, None)
+    t = time.perf_counter()
+    proc = subprocess.Popen([sys.executable, "-m", "iv_interpolation_tpu_torch.bench",
+                             "--seed", str(BENCH["seed"])], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH["timeout"])
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)      # the harness and its child
+        out, err = proc.communicate()
+        (work / "bench.err").write_text(err)
+        raise RuntimeError(f"check failed: the bench ended within {BENCH['timeout']} s: "
+                           f"{err[-3000:]}")
+    wall = time.perf_counter() - t
+    (work / "bench.err").write_text(err)
+    for line in err.splitlines():
+        if line.startswith("# "):
+            log("  " + line)
+    check(proc.returncode == 0, f"the bench exited 0 (got {proc.returncode}): {err[-3000:]}")
+    lines = out.splitlines()
+    check(len(lines) == 1, f"the bench printed exactly one line on stdout: {out[-2000:]}")
+    return json.loads(lines[0]), json.loads(state.read_text()), wall
+
+
+def bench_phase(root: Path, reset_counts, read_by_dtype, earlier: dict) -> dict:
+    """Phase 14: (a) the bench harness at full size, its line and state
+    file checked, each stage beside the earlier phases' figures at its
+    shape (``earlier``: stage -> (what, surfaces or slices a second)); (b)
+    ``graft_entry.entry()`` once on the card. Returns the launches of the
+    bench's stages and of the entry point."""
+    from iv_interpolation_tpu_torch import graft_entry
+
+    t0 = time.perf_counter()
+    line, state, wall = run_bench(root)
+    log(f"  (a) the bench took {wall:.1f} s; its line: {json.dumps(line)}")
+    missing = [k for k in BENCH_KEYS if k not in line]
+    check(not missing and "incomplete_metrics" not in line and not state["failed"],
+          f"(a) the line has bench.py's keys and every stage: missing {missing}, incomplete "
+          f"{line.get('incomplete_metrics')}, failed {sorted(state['failed'])}")
+    check(line["device"].startswith(torch.cuda.get_device_name(0)) and line["device"].endswith("W)"),
+          f"(a) the line names the card and its power limit: {line['device']}")
+    check(line["butterfly_clean_frac"] == 1.0 and line["butterfly_adversarial_frac"] <= 0.05,
+          f"(a) butterfly fractions clean {line['butterfly_clean_frac']}, adversarial "
+          f"{line['butterfly_adversarial_frac']}")
+    check(line["parity_fast_f32_max_err"] < 5e-6 and line["parity_max_err_vs_x64_oracle"] < 1e-9,
+          f"(a) the fast path within 5e-6 of SciPy ({line['parity_fast_f32_max_err']}) and "
+          f"parity mode within 1e-9 ({line['parity_max_err_vs_x64_oracle']})")
+    extras = {e["metric"]: e for e in line["extra_metrics"]}
+    ah_line = extras["ah_surfaces_per_sec_512x8x16_grid257_iters16"]
+    check(ah_line["arbfree_frac"] == 1.0, f"(a) AH all arbitrage-free: {ah_line}")
+    stages = state["stages"]
+    launches = {name: stages[name]["launches"] for name in ("parity", "ah", "streaming")}
+    check(launches["parity"]["b1_f64"] > 0 and launches["ah"]["b1_f32"] > 0
+          and launches["streaming"]["b2"] > 0,
+          f"(a) B1 float64 ran in the parity stage, B1 float32 in AH, B2 in streaming: {launches}")
+    for name, res in stages.items():
+        ev = res["event_median_ms"]
+        # the spline stage times two batches; its value is the better one's
+        batches = res["calls"] if len(res["calls"]) > 1 else []
+        log(f"  (a) {name}: value {res['value']:,} (host median {res['host_median_s'] * 1e3:.3f} "
+            f"ms a call; event median {ev:.3f} ms, host/event {res['host_median_s'] * 1e3 / ev:.2f}"
+            f"), peak {res['peak_bytes'] / 2**30:.2f} GiB, launches {res['launches']}, "
+            f"{res['seconds']:.1f} s"
+            + "".join(f"; B={c['batch']}: host median {c['host_median_s'] * 1e3:.3f} ms, event "
+                      f"median {c['event_median_ms']:.3f} ms" for c in batches)
+            + (f"; {earlier[name][0]}: {earlier[name][1]:,.1f}" if name in earlier else ""))
+
+    # (b) the entry point's forward step
+    fn, args = graft_entry.entry()
+    reset_counts()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    entry_counts = read_by_dtype()
+    want = fn(*(a.cpu() for a in args))
+    gap = float((got[0].cpu() - want[0]).abs().max())
+    scale = float(want[0].abs().max())
+    check(entry_counts["b1_f32"] >= 1 and gap <= 256 * EPS32 * scale
+          and all(torch.equal(g.cpu(), h) for g, h in zip(got[1:], want[1:])),
+          f"(b) entry() on the card launched B1 float32 ({entry_counts}) and matches CPU "
+          f"tensors: max |w gap| {gap:.3e}, flags equal")
+    log(f"  (b) graft_entry.entry() on the card: w_grid {tuple(got[0].shape)}, {entry_counts}, "
+        f"max |card - CPU| {gap:.3e}, all butterfly-free {bool(got[1].all())}")
+    shutil.rmtree(bench_work(), ignore_errors=True)
+    log(f"  phase 14 took {time.perf_counter() - t0:.1f} s")
+    return {"line": line, "launches": launches, "entry": entry_counts,
+            "stages": {n: {k: r[k] for k in ("value", "host_median_s", "event_median_ms",
+                                             "peak_bytes")} for n, r in stages.items()}}
+
+
 def parse_phases(argv) -> set | None:
     """``--phases 2,9``: the phases a development run keeps (phase 1, the
     build, always runs). None, the default, runs them all."""
@@ -4338,6 +4469,30 @@ def main(argv=()) -> int:
         library = library_phase(reset_counts, read_by_dtype, tridiag, ops_tridiag,
                                 surf["digests"] if want(3) else None)
         done(13)
+    if want(14):
+        log("phase 14: the bench harness")
+        log(f"  card: {smi.splitlines()[0]}")
+        earlier = {}
+        if want(3):
+            earlier["spline"] = ("phase 3, fit_eval_surface at 32768 (another function), "
+                                 "surfaces/s by events", surf["surfaces_per_s"])
+        if want(4):
+            earlier["streaming"] = ("phase 4, a session's warm refit at 1024 x 30 x 50 chains, "
+                                    "underlyings/s by host", stream["underlyings_per_s"])
+        if want(9):
+            earlier["svi"] = ("phase 9 (a), slices/s by events", fits["svi quasi"]["rate"])
+            earlier["essvi"] = ("phase 9 (b), surfaces/s by events", fits["essvi block"]["rate"])
+        if want(10):
+            earlier["ah"] = ("phase 10 (a), surfaces/s by events (by host "
+                             f"{ah_res['surfaces_per_s_host']:,.1f})", ah_res["surfaces_per_s"])
+            earlier["rbf"] = ("phase 10 (d), surfaces/s by events",
+                              rbf_res["full"]["surfaces_per_s"])
+            earlier["rbf_reduced"] = ("phase 10 (d), surfaces/s by events",
+                                      rbf_res["reduced"]["surfaces_per_s"])
+        torch.cuda.empty_cache()
+        benched = bench_phase(Path(__file__).resolve().parent, reset_counts, read_by_dtype,
+                              earlier)
+        done(14)
     shutil.rmtree(surface_work(), ignore_errors=True)
     if only is not None:
         log(f"partial run of phases {sorted(only)}: no result line")
@@ -4361,6 +4516,7 @@ def main(argv=()) -> int:
         + f" surfaces/s; autolam {operator['autolam_ms']:.1f} ms at 1,024 x 30 x 8 penalties"
         f"; quickstart float32 sections s "
         + ", ".join(f"{k} {v:.3f}" for k, v in library["quick"]["seconds"]["float32 warm"].items())
+        + f"; bench: " + ", ".join(f"{n} {r['value']:,}" for n, r in benched["stages"].items())
         + f"; all phases done at {time.perf_counter() - t_start:.1f} s")
     b2["max_abs_err"] = max(b2["max_abs_err"], checks["b2_err"])
 
@@ -4377,11 +4533,14 @@ def main(argv=()) -> int:
             "mesh dry run (phase 12)": meshed["dryrun_b1"],
             "quickstart (phase 13)": library["quick"]["launches"]["float32"]["b1_f32"],
             "top-level fit_eval_surface (phase 13)":
-                library["quick"]["launches"]["top-level"]["b1_f32"]},
+                library["quick"]["launches"]["top-level"]["b1_f32"],
+            "bench AH (phase 14)": benched["launches"]["ah"]["b1_f32"],
+            "graft_entry.entry (phase 14)": benched["entry"]["b1_f32"]},
         "tridiag_thomas_f64": {"surface task parity (phase 7)": surf_task["launches"]["b1_f64"],
                                "AH float64 fit (phase 10)": ah_res["b1_f64"],
                                "quickstart float64 (phase 13)":
-                                   library["quick"]["launches"]["float64"]["b1_f64"]},
+                                   library["quick"]["launches"]["float64"]["b1_f64"],
+                               "bench parity (phase 14)": benched["launches"]["parity"]["b1_f64"]},
         "stream_agg": {
             "streaming (phase 4)": surface_stream["b2"], "fused_batch (phase 5)": fused["b2"],
             "runner (phase 6)": host["launches"]["b2"],
@@ -4392,7 +4551,8 @@ def main(argv=()) -> int:
             "mesh runner (phase 12)": meshed["runner_b2"],
             "mesh session (phase 12)": meshed["session_b2"],
             "quickstart (phase 13)": library["quick"]["launches"]["float32"]["b2"],
-            "quickstart float64 (phase 13)": library["quick"]["launches"]["float64"]["b2"]},
+            "quickstart float64 (phase 13)": library["quick"]["launches"]["float64"]["b2"],
+            "bench streaming (phase 14)": benched["launches"]["streaming"]["b2"]},
         "stream_agg_f64": {"float64 pipeline (phase 6)": host["b2_f64_launches"]},
     }
     check(all(n > 0 for n in paths["tridiag_thomas_f64"].values())
@@ -4408,11 +4568,15 @@ def main(argv=()) -> int:
           and paths["stream_agg"]["mesh session (phase 12)"] > 0
           and paths["tridiag_thomas_f32"]["quickstart (phase 13)"] > 0
           and paths["tridiag_thomas_f32"]["top-level fit_eval_surface (phase 13)"] > 0
-          and paths["stream_agg"]["quickstart (phase 13)"] > 0,
+          and paths["stream_agg"]["quickstart (phase 13)"] > 0
+          and paths["tridiag_thomas_f32"]["bench AH (phase 14)"] > 0
+          and paths["tridiag_thomas_f32"]["graft_entry.entry (phase 14)"] > 0
+          and paths["stream_agg"]["bench streaming (phase 14)"] > 0,
           f"B1 float32 and float64 ran on the surface task and the AH paths, B2 on the served "
           f"refits, window_candles and the postgres-backed run and, in float64, on the "
           f"float64 pipeline; B1 on the mesh's surface task, B2 on its runner and session; "
-          f"B1 and B2 in the quickstart: "
+          f"B1 and B2 in the quickstart; B1 float64 in the bench's parity stage, B1 float32 "
+          f"in its AH stage and the entry point, B2 in its streaming stage: "
           f"{paths}")
     thomas = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/tridiag_thomas.cu",
                   replaces="iv_interpolation_tpu/ops/pallas/tridiag_pallas.py:57")

@@ -1,6 +1,6 @@
 """Counter-based random numbers: the part of JAX's ``random`` module
-(threefry2x32 with partitionable counters, JAX's default) that the bridge
-and the runner use.
+(threefry2x32 with partitionable counters, JAX's default) that the bridge,
+the runner and the bench harness use.
 
 A key is an int64 tensor of shape ``(..., 2)`` holding two uint32 words
 (the ``key_data`` of a JAX key, see ``convert.prng_key_from_numpy``).
@@ -12,10 +12,18 @@ package's bit for bit:
   * ``fold_in(key, d)``      -> ``threefry2x32(key, (0, d))``
   * ``split(key, n)[i]``     -> ``threefry2x32(key, (0, i))`` (the
     partitionable counter: the high and low words of a 64-bit iota)
-  * 32 random bits (shape ``()``) -> ``y0 ^ y1`` of ``threefry2x32(key, (0, 0))``;
-    64 bits -> ``(y0 << 32) | y1``
+  * 32 random bits -> ``y0 ^ y1``, 64 bits -> ``(y0 << 32) | y1``, of
+    ``threefry2x32(key, (i >> 32, i & 0xFFFFFFFF))`` for element ``i`` (in
+    row-major order) of a draw of shape ``S``; shape ``()`` is ``i = 0``
   * ``uniform``: the top mantissa bits under the exponent of 1.0, minus 1,
-    scaled to ``[lo, hi)`` and floored at ``lo``.
+    scaled to ``[lo, hi)`` and floored at ``lo``
+  * ``randint(key, S, lo, hi)`` (int32): two 32-bit draws of shape ``S``
+    from ``split(key, 2)``, combined modulo ``hi - lo`` as JAX combines
+    them (its bias and all).
+
+``bits``, ``uniform`` and ``normal`` take a ``shape`` (default ``()``),
+as ``randint`` does: the result has the keys' batch dims followed by
+``shape``, each key drawing its own array.
 
 uint32 arithmetic runs in int64 tensors masked to 32 bits, which every
 device supports. Raw bits are exact. XLA fuses ``uniform``'s affine map
@@ -91,12 +99,14 @@ def split(k: torch.Tensor, n: int) -> torch.Tensor:
     return fold_in(k[..., None, :], i)
 
 
-def bits(k: torch.Tensor, width: int) -> torch.Tensor:
-    """One draw of ``width`` (32 or 64) random bits per key, as int64
-    (64-bit draws wrap to negative where the top bit is set)."""
+def bits(k: torch.Tensor, width: int, shape: tuple = ()) -> torch.Tensor:
+    """Random bits of ``width`` (32 or 64) per element of ``shape`` per
+    key, as int64 (64-bit draws wrap to negative where the top bit is
+    set): ``(...) + shape``."""
     k0, k1 = _words(k)
-    zero = torch.zeros_like(k0)
-    y0, y1 = threefry2x32(k0, k1, zero, zero)
+    i = torch.arange(math.prod(shape), dtype=torch.int64, device=k.device).reshape(shape)
+    lead = k0.shape + (1,) * len(shape)
+    y0, y1 = threefry2x32(k0.reshape(lead), k1.reshape(lead), i >> 32, i & _MASK)
     if width == 32:
         return y0 ^ y1
     if width == 64:
@@ -105,12 +115,12 @@ def bits(k: torch.Tensor, width: int) -> torch.Tensor:
 
 
 def uniform(k: torch.Tensor, dtype: torch.dtype = torch.float32,
-            lo: float = 0.0, hi: float = 1.0) -> torch.Tensor:
-    """JAX's ``random.uniform(k, (), dtype, lo, hi)`` for each key."""
+            lo: float = 0.0, hi: float = 1.0, shape: tuple = ()) -> torch.Tensor:
+    """JAX's ``random.uniform(k, shape, dtype, lo, hi)`` for each key."""
     lo_t = torch.tensor(lo, dtype=dtype, device=k.device)
     hi_t = torch.tensor(hi, dtype=dtype, device=k.device)
     if dtype == torch.float32:
-        f = ((bits(k, 32) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+        f = ((bits(k, 32, shape) >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
         # XLA fuses u * (hi - lo) + lo into one multiply-add; in float64
         # the product is exact and the sum rounds once before float32
         u = (f.double() - 1.0) * (hi_t - lo_t).double() + lo_t.double()
@@ -118,18 +128,19 @@ def uniform(k: torch.Tensor, dtype: torch.dtype = torch.float32,
     if dtype == torch.float64:
         # the arithmetic shift's sign extension lands only in bits the
         # mantissa mask clears
-        f = (((bits(k, 64) >> 12) & ((1 << 52) - 1))
+        f = (((bits(k, 64, shape) >> 12) & ((1 << 52) - 1))
              | 0x3FF0000000000000).view(torch.float64)
         return torch.maximum(lo_t, (f - 1.0) * (hi_t - lo_t) + lo_t)
     raise TypeError(f"uniform draws float32 or float64, got {dtype}")
 
 
-def normal(k: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """JAX's ``random.normal(k, (), dtype)``: ``sqrt(2) erfinv(u)`` with u
-    uniform on ``[nextafter(-1, 0), 1)``."""
+def normal(k: torch.Tensor, dtype: torch.dtype = torch.float32,
+           shape: tuple = ()) -> torch.Tensor:
+    """JAX's ``random.normal(k, shape, dtype)``: ``sqrt(2) erfinv(u)`` with
+    u uniform on ``[nextafter(-1, 0), 1)``."""
     lo = torch.nextafter(torch.tensor(-1.0, dtype=dtype),
                          torch.tensor(0.0, dtype=dtype)).item()
-    u = uniform(k, dtype, lo, 1.0)
+    u = uniform(k, dtype, lo, 1.0, shape)
     return torch.erfinv(u) * torch.tensor(math.sqrt(2.0), dtype=dtype,
                                           device=k.device)
 
@@ -137,3 +148,16 @@ def normal(k: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
 def exponential(k: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """JAX's ``random.exponential(k, (), dtype)``: ``-log1p(-u)``."""
     return -torch.log1p(-uniform(k, dtype))
+
+
+def randint(k: torch.Tensor, shape: tuple, lo: int, hi: int) -> torch.Tensor:
+    """JAX's ``random.randint(k, shape, lo, hi, int32)`` for int32 bounds
+    with ``lo < hi``: two 32-bit draws from ``split(k, 2)`` reduced modulo
+    the span in wrapping uint32 arithmetic. Returns int32."""
+    if not -2**31 <= lo < hi <= 2**31 - 1:
+        raise ValueError(f"randint needs int32 bounds lo < hi, got [{lo}, {hi})")
+    span = hi - lo
+    k_hi, k_lo = split(k, 2).unbind(-2)
+    mult = ((2**16 % span) ** 2 & _MASK) % span
+    offset = ((bits(k_hi, 32, shape) % span) * mult & _MASK) + bits(k_lo, 32, shape) % span
+    return ((offset & _MASK) % span + lo).to(torch.int32)

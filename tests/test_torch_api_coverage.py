@@ -13,6 +13,13 @@ mappings apply: ``ops/pallas/<name>_pallas.py`` -> ``ops/cuda/<name>.py``
 The only exceptions are in ``EXCLUDED``, each with its reason. Each
 parameter of a public JAX function or method must be accepted by its
 counterpart too, but the XLA-only ones (``XLA_ONLY_PARAMETERS``).
+
+Two pieces of the system live at the repository root, outside the JAX
+package: the bench harness ``bench.py`` and the entry points
+``__graft_entry__.py``. They map to ``bench.py`` and ``graft_entry.py``
+of the port (``ROOT_MODULES``), and there the private names count too:
+a script's helpers are its structure. Their exceptions are in
+``ROOT_EXCLUDED``.
 """
 
 import ast
@@ -55,10 +62,11 @@ def _served(node) -> set:
             for k in n.keys if isinstance(k, ast.Constant) and isinstance(k.value, str)}
 
 
-def _names(path: Path, reexports_only: bool) -> set:
-    """Top-level public names of a module. With ``reexports_only`` an
-    import counts only as a re-export (package ``__init__`` or
-    ``noqa: F401``, from this package); else every binding counts."""
+def _names(path: Path, reexports_only: bool, private: bool = False) -> set:
+    """Top-level public names of a module (with ``private``, its single-
+    underscore names too). With ``reexports_only`` an import counts only
+    as a re-export (package ``__init__`` or ``noqa: F401``, from this
+    package); else every binding counts."""
     text = path.read_text()
     lines = text.splitlines()
     out = set()
@@ -91,7 +99,7 @@ def _names(path: Path, reexports_only: bool) -> set:
                 walk(getattr(s, "finalbody", []))
 
     walk(ast.parse(text).body)
-    return {n for n in out if not n.startswith("_")}
+    return {n for n in out if not n.startswith("__") and (private or not n.startswith("_"))}
 
 
 JAX_MODULES = sorted(p.relative_to(JAX_PKG).as_posix() for p in JAX_PKG.rglob("*.py"))
@@ -138,19 +146,28 @@ def test_every_public_name_has_its_counterpart(rel):
     assert not missing, f"{rel}: no counterpart in {_port_path(rel)} for {missing}"
 
 
-@pytest.mark.parametrize("rel", [r for r in JAX_MODULES if r not in EXCLUDED])
-def test_every_parameter_name_is_accepted(rel):
-    """Each parameter of a public JAX function or method is a parameter of
-    its counterpart (or goes to its ``**kwargs``), but the XLA-only ones."""
-    have = _signatures(PORT_PKG / _port_path(rel))
+def _missing_parameters(jax_path: Path, port_path: Path, port_name) -> list:
+    """Parameters of ``jax_path``'s public functions and methods that
+    their counterparts in ``port_path`` neither take nor pass to
+    ``**kwargs``, but the XLA-only ones."""
+    have = _signatures(port_path)
     missing = []
-    for name, (params, _) in _signatures(JAX_PKG / rel).items():
-        mine = have.get(_port_name(rel, name))
+    for name, (params, _) in _signatures(jax_path).items():
+        mine = have.get(port_name(name))
         if mine is None:
             continue                     # a method the port spells otherwise
         takes, any_kw = mine
         missing += [f"{name}({p})" for p in sorted(params - takes - XLA_ONLY_PARAMETERS)
                     if not any_kw]
+    return missing
+
+
+@pytest.mark.parametrize("rel", [r for r in JAX_MODULES if r not in EXCLUDED])
+def test_every_parameter_name_is_accepted(rel):
+    """Each parameter of a public JAX function or method is a parameter of
+    its counterpart (or goes to its ``**kwargs``), but the XLA-only ones."""
+    missing = _missing_parameters(JAX_PKG / rel, PORT_PKG / _port_path(rel),
+                                  lambda name: _port_name(rel, name))
     assert not missing, f"{rel}: parameters without a counterpart: {missing}"
 
 
@@ -165,6 +182,43 @@ def test_each_exclusion_is_still_needed(key):
         assert name not in _names(PORT_PKG / _port_path(rel), reexports_only=False)
     else:
         assert not (PORT_PKG / _port_path(rel)).exists()
+
+
+ROOT_MODULES = {"bench.py": "bench.py", "__graft_entry__.py": "graft_entry.py"}
+
+ROOT_EXCLUDED = {
+    "bench.py:_wait_for_backend": "waits out outages of the TPU runtime's relay; the card's "
+                                  "process has none to wait for",
+    "bench.py:_probe_backend_once": "probes the TPU runtime's relay between child attempts; "
+                                    "the port's parent relaunches after a stage fails",
+    "bench.py:_CACHE_DIR": "XLA's persistent compile cache and its wipe; the port compiles "
+                           "no programs (its kernels build into build/)",
+    "bench.py:_force": "a one-element readback as the barrier of a remote TPU runtime; the "
+                       "port's timer synchronizes the card (_timed)",
+    "bench.py:TARGET": "vs_baseline's target, set for another chip; the port's line carries "
+                       "vs_baseline null",
+}
+
+
+@pytest.mark.parametrize("rel", sorted(ROOT_MODULES))
+def test_every_name_of_the_root_pieces_has_its_counterpart(rel):
+    have = _names(PORT_PKG / ROOT_MODULES[rel], reexports_only=False, private=True)
+    missing = sorted(n for n in _names(REPO / rel, reexports_only=True, private=True)
+                     if n not in have and f"{rel}:{n}" not in ROOT_EXCLUDED)
+    assert not missing, f"{rel}: no counterpart in {ROOT_MODULES[rel]} for {missing}"
+
+
+@pytest.mark.parametrize("rel", sorted(ROOT_MODULES))
+def test_every_parameter_of_the_root_pieces_is_accepted(rel):
+    missing = _missing_parameters(REPO / rel, PORT_PKG / ROOT_MODULES[rel], lambda name: name)
+    assert not missing, f"{rel}: parameters without a counterpart: {missing}"
+
+
+@pytest.mark.parametrize("key", sorted(ROOT_EXCLUDED))
+def test_each_root_exclusion_is_still_needed(key):
+    rel, _, name = key.partition(":")
+    assert name in _names(REPO / rel, reexports_only=True, private=True)
+    assert name not in _names(PORT_PKG / ROOT_MODULES[rel], reexports_only=False, private=True)
 
 
 def test_the_light_entry_points_import_neither_torch_nor_jax():

@@ -1,7 +1,8 @@
 """Port parity: the counter-based PRNG (``ops/prng.py``) against
 ``jax.random`` (threefry2x32, partitionable counters).
 
-Keys, ``fold_in``, ``split`` and raw bits must be bit-identical. Uniform
+Keys, ``fold_in``, ``split``, raw bits and ``randint`` must be
+bit-identical, for one draw a key and for shaped draws. Uniform
 draws must be bit-identical in float32 for any range and in float64 for
 the ranges whose affine map is exact (every range the bridge uses).
 Elsewhere a float64 draw is within one ulp of max(|lo|, |hi|) (the
@@ -105,6 +106,52 @@ def test_normal_and_exponential_within_ulps(name, dist):
     eps = np.finfo(want.dtype).eps
     err = np.abs(got.astype(np.float64) - want) / np.maximum(1.0, np.abs(want))
     assert err.max() <= ulps * eps, err.max() / eps
+
+
+SHAPES = ((7,), (3, 4, 5), (2, 1, 1), (4, 300))
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("seed", [0, 12345, 2**31 - 17])
+def test_shaped_draws_match_jax(seed, shape):
+    """Element i of a draw of shape S is threefry2x32(key, (i >> 32, i &
+    0xFFFFFFFF)): uniform and bits bit for bit, normal within its ulps."""
+    jk, tk = jax.random.PRNGKey(seed), prng.key(seed, device="cpu")
+    np.testing.assert_array_equal(
+        prng.bits(tk, 32, shape).numpy().astype(np.uint32),
+        np.asarray(jax.random.bits(jk, shape, jnp.uint32)))
+    for lo, hi in ((0.15, 0.6), (0.0, 5.0), (-1.0, 1.0)):
+        got = prng.uniform(tk, torch.float32, lo, hi, shape).numpy()
+        np.testing.assert_array_equal(got, np.asarray(jax.random.uniform(
+            jk, shape, jnp.float32, lo, hi)))
+    want = np.asarray(jax.random.normal(jk, shape, jnp.float32))
+    got = prng.normal(tk, torch.float32, shape).numpy()
+    assert got.shape == want.shape
+    err = np.abs(got.astype(np.float64) - want) / np.maximum(1.0, np.abs(want))
+    assert err.max() <= DTYPES["float32"][2] * np.finfo(np.float32).eps
+
+
+def test_shaped_draws_batch_over_keys():
+    """Keys (K, 2) and shape S give (K,) + S, each key its own draw."""
+    keys = prng.split(prng.key(3, device="cpu"), 4)
+    got = prng.uniform(keys, torch.float32, 0.0, 1.0, (2, 3))
+    assert got.shape == (4, 2, 3)
+    for i in range(4):
+        np.testing.assert_array_equal(got[i].numpy(),
+                                      prng.uniform(keys[i], torch.float32, 0.0, 1.0, (2, 3)).numpy())
+
+
+@pytest.mark.parametrize("lo,hi", [(0, 512), (0, 64), (-5, 70000), (0, 2**31 - 1),
+                                   (-2**31, 2**31 - 1)])
+def test_randint_matches_jax_bit_for_bit(lo, hi):
+    for seed in (0, 12345):
+        want = np.asarray(jax.random.randint(jax.random.PRNGKey(seed), (4, 300), lo, hi,
+                                             jnp.int32))
+        got = prng.randint(prng.key(seed, device="cpu"), (4, 300), lo, hi)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+    with pytest.raises(ValueError):
+        prng.randint(prng.key(0, device="cpu"), (2,), 5, 5)
 
 
 def test_key_checks():
