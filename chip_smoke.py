@@ -11,7 +11,8 @@ Phases:
      float32 matmul precision;
   2. each CUDA kernel against its plain PyTorch version on the card, at
      every shape the main paths give it and at the edges of its launch
-     plan (B1: n=1 and 2, float64, the global-scratch route; B2: int64
+     plan (B1: n=1 and 2, float64, the partitioned route of n beyond the
+     staged tiles and the global-scratch route beyond its tiles; B2: int64
      minutes beyond int32, shuffled rows, NaN/Inf payloads, negative
      minutes, scalar loads, the tile loop; B2 once more with float64
      values, every case and the three timed shapes; in float32 also timed
@@ -23,7 +24,10 @@ Phases:
      over the card's peak rates), the share of it, and the library call
      where one computes the same function (B1: ``torch.linalg.solve`` on
      the dense systems; B2: none); B1 also times its global-scratch
-     kernel (one thread a system) in turns with the planned route;
+     kernel (one thread a system) in turns with the planned route, and on
+     the partitioned route holds the kernel to its own plain version and
+     times each systems-a-block count and both solvers of the reduced
+     system (PCR, Thomas);
   3. the surface step: ``fit_eval_surface`` (cubic spline, not-a-knot) on
      32768 surfaces of 30 x 50 quotes, held to SciPy on a sub-batch;
   4. the streaming refit: a ``StreamingSession`` over 1024 underlyings
@@ -36,8 +40,11 @@ Phases:
      gate, candle counts and volume preservation, and launching B2 once
      (the cubic one B1 too); then B2 on a real batch's candle stage
      against its plain version, the stage timed from a CUDA graph with
-     its int64 minutes, and two batches and the cubic one against the
-     same batches on CPU tensors;
+     its int64 minutes, and batch 0 and the cubic one against the
+     same batches on CPU tensors; (a) the 30-day cubic batch (256 symbols
+     x 721 hourly rows, the config's 30-day span, in the 65,536-minute
+     bucket: B1 at n=719 x 768 on the partitioned route) in float32 and
+     float64, its first 32 symbols against CPU tensors;
   6. the host runner: the same 2,048 symbols x 7 days (from the port's
      sample generator) through ``PipelineRunner.run_pipeline_fused`` from
      a store to the three tables (parquet when pyarrow imports, else
@@ -49,7 +56,10 @@ Phases:
      tables and a cubic run (B1 once a sub-batch); a float64 run
      (``processing.dtype="float64"``, 256 symbols in 4 batches: B2 float64
      once a batch, no symbol in error, held to the same run on CPU
-     tensors); the CLI in a subprocess;
+     tensors); the CLI in a subprocess; (b) a 30-day cubic run (64
+     symbols x 721 hours, 10 % dropped, split into sub-batches of one
+     observation count) in float32 and float64 from a parquet store, every
+     B1 launch on the partitioned route, 16 symbols against CPU tensors;
   7. the surface task: an ``interpolated`` table of 256 underlyings (192
      of 12 expiries x 32 strikes, 64 of 6 x 16, call and put, two
      snapshots a symbol, about 2 % of the latest rows marked by price
@@ -80,8 +90,8 @@ Phases:
      float32): surfaces/s over CUDA events and host time, B1 launches a
      fit by dtype and batch (512 and 8,192), device launches and idle
      share, peak memory, every surface arbitrage-free, 64 surfaces against
-     CPU tensors; (b) the same 64 in float64 (B1's global-scratch route)
-     against CPU float64 within 1e-10 in price; (c) ``eval_ah`` at 64 x 64
+     CPU tensors; (b) the same 64 in float64 (B1's partitioned route,
+     every launch) against CPU float64 within 1e-10 in price; (c) ``eval_ah`` at 64 x 64
      scattered queries; (d) RBF penalized at 8 x 2,048 (every site a
      center) and 64 x 2,048 on 512 centers, 24 iterations, and the
      zero-penalty path at 8 x 2,048 in float64 against CPU float64; (e)
@@ -197,19 +207,27 @@ DEV = "cuda"
 
 # phase 2's B1 cases (n, batch, dtype): every main-path shape, then the
 # edges (n=1 and 2, a batch that is no multiple of 4, float64, the
-# global-scratch route of n beyond the staged tiles). n=48 at 983,040 is
-# the not-a-knot reduced system of the surface step (32768 x 30 smiles);
-# n=166 at 768 the pipeline's cubic batch (168 hourly knots, 256 x 3);
-# n=30 at 3,072 and n=14 at 512 the surface task's two buckets (192 x 16
-# slices of 32 strikes, 64 x 8 of 16), float32 and, in parity mode,
-# float64; n=6 and 62 the neighbouring buckets (8 and 64 strikes). n=257
-# at 512 and 8,192 are Andreasen-Huge's step and tangent solves at its
-# bench shape (512 surfaces x 16 quotes, surface.ah_grid = 257): the
-# staged route in float32, the global-scratch route in float64, on the
-# rows of its own step systems (B1_AH). n=48 at 983,040 in float64 is the
-# bench's parity stage (32768 x 30 smiles in parity mode).
+# partitioned route of n beyond the staged tiles and the global-scratch
+# route beyond the partitioned tiles). n=48 at 983,040 is the not-a-knot
+# reduced system of the surface step (32768 x 30 smiles); n=166 at 768
+# the pipeline's cubic batch (168 hourly knots, 256 x 3); n=719 at 768
+# the 30-day cubic batch (721 hourly knots, the config's max_span_days,
+# 256 x 3: the partitioned route, float32 and, in phase 5 (a)'s float64
+# run, float64); n=SUB_N at 48 a sub-batch of phase 6 (b)'s 30-day
+# runner (one observation count, 1-16 symbols padded to 16, x 3); n=30 at
+# 3,072 and n=14 at 512 the surface task's two buckets (192 x 16 slices
+# of 32 strikes, 64 x 8 of 16), float32 and, in parity mode, float64; n=6
+# and 62 the neighbouring buckets (8 and 64 strikes). n=257 at 512 and
+# 8,192 are Andreasen-Huge's step and tangent solves at its bench shape
+# (512 surfaces x 16 quotes, surface.ah_grid = 257): the staged route in
+# float32, the partitioned route in float64, on the rows of its own step
+# systems (B1_AH). n=48 at 983,040 in float64 is the bench's parity stage
+# (32768 x 30 smiles in parity mode).
 F32, F64 = torch.float32, torch.float64
+SUB_N = 646
 B1_MAIN = {(48, 983_040, F32): "surface step", (166, 768, F32): "cubic batch",
+           (719, 768, F32): "30-day cubic batch", (719, 768, F64): "30-day cubic batch",
+           (SUB_N, 48, F32): "30-day runner sub-batch",
            (30, 3072, F32): "surface task 192x16", (14, 512, F32): "surface task 64x8",
            (30, 3072, F64): "surface task parity 192x16",
            (14, 512, F64): "surface task parity 64x8",
@@ -218,6 +236,7 @@ B1_MAIN = {(48, 983_040, F32): "surface step", (166, 768, F32): "cubic batch",
            (48, 983_040, F64): "bench parity"}
 B1_AH = {(257, 512), (257, 8192)}
 B1_CASES = ((48, 983_040, F32, 1.0), (166, 768, F32, 1.0),
+            (719, 768, F32, 1.0), (719, 768, F64, 1.0), (SUB_N, 48, F32, 1.0),
             (30, 3072, F32, 1.0), (14, 512, F32, 1.0),
             (30, 3072, F64, 1.0), (14, 512, F64, 1.0),
             (257, 512, F32, 1.0), (257, 8192, F32, 1.0),
@@ -226,10 +245,13 @@ B1_CASES = ((48, 983_040, F32, 1.0), (166, 768, F32, 1.0),
             (30, 512, F64, 1.0), (62, 512, F64, 1.0), (62, 3072, F64, 1.0),
             (50, 4096, F64, 1.0), (50, 1000, F32, 1.0),
             (1, 4097, F32, 1.0), (2, 4097, F64, 1.0),
-            (257, 4096, F64, 1.0), (500, 2048, F32, 1.0),
+            (257, 4096, F64, 1.0), (500, 2048, F32, 1.0), (1600, 512, F64, 1.0),
             (24, 4096, F32, 1e38))
 # the surface task's float64 systems all take the staged route
 B1_STAGED_F64 = {(n, batch) for n in (6, 14, 30, 62) for batch in (512, 3072)}
+# every shape beyond the staged tiles up to n = 1,000 takes the
+# partitioned route; n=1600 in float64 is beyond its tiles (scratch)
+B1_SCRATCH = {(1600, 512, F64)}
 # scale 1e38: diagonals near float32's largest values, whose reciprocals
 # are subnormal and leave the kernel's fast reciprocal (its full-division
 # sweep runs); x stays of order 0.1
@@ -247,6 +269,12 @@ REPLAY = dict(n_underlyings=1024, window_minutes=512)
 # 16,384 length bucket; batches 0 and 7 are also run on CPU tensors
 PIPELINE = dict(symbols=2048, hours=168, drop_frac=0.1, batch=256, bucket=16384,
                 cpu_batches=(0, 7))
+# phase 5 (a), the 30-day cubic batch: 256 symbols x 721 hourly rows (the
+# config's max_span_days = 30, hours 0 .. 720), nothing dropped, packed
+# into the 65,536 bucket (43,201 minutes): B1 at n=719 x 768 on the
+# partitioned route, in float32 and float64; its first 32 symbols also on
+# CPU tensors
+CUBIC30 = dict(symbols=256, hours=721, bucket=65536, cpu=32, seed=30)
 # phase 6, the host runner: the same scale as phase 5 through
 # ``PipelineRunner.run_pipeline_fused`` from a store of sample tickers
 # (the JAX package's generator, about 10 % dropped) to the three tables,
@@ -268,6 +296,13 @@ SURFACE_TASK = dict(big=(192, 12, 32), small=(64, 6, 16), nan_frac=0.02, seed=17
 # phase 8, serving phase 7's store: 64 ticks per underlying over a
 # 512-minute window, then 7 refits
 SERVE = dict(ticks=64, window=512, refits=7, seed=18)
+# phase 6 (b), the 30-day cubic runner: 64 symbols x 721 hourly rows, 10 %
+# dropped, 64 a batch, split by observation count into sub-batches of a
+# few symbols (each padded to 16: B1 at n about 630-680 x 48), float32
+# and float64 from a parquet store; the first 16 symbols also on CPU
+# tensors (the CPU's plain loop and 65,536-minute grids take about 1 s a
+# sub-batch: the whole 64 would cost the script a minute a dtype)
+RUNNER30 = dict(symbols=64, hours=721, drop_frac=0.1, seed=31, batch=64, cpu_symbols=16)
 # phase 6's float64 run: 256 symbols x 2 days in 4 batches of 64
 RUNNER_F64 = dict(symbols=256, hours=48, batch=64, seed=20)
 # phase 9, the calibrated families: 1,024 surfaces x 30 expiries x 50
@@ -422,15 +457,19 @@ def tridiag_cases(tridiag, lib) -> dict:
     """B1 against the plain Thomas loop at every case of B1_CASES, then
     timed at the main-path shapes: the kernel on its planned route, the
     global-scratch kernel (one thread a system, which the plan keeps for
-    large n) in turns with it, the plain loop, the dense library solve and the
-    bound. Tolerance: 256 ulps of max |x| (diagonally dominant systems:
-    Thomas is backward stable with error growth O(n eps), and the kernel's
-    fused multiply-adds round each step at most one ulp differently from
-    the plain version's separate multiply and subtract). The
-    Andreasen-Huge systems of B1_AH are not diagonally dominant at their
-    boundary rows, and the same bound holds there (measured: 68 ulps in
-    float32 and in float64 on an H100). Returns, per dtype name, the worst
-    error, the first main-path shape's row and every main-path row."""
+    n beyond the partitioned tiles) in turns with it, the plain loop, the
+    dense library solve and the bound; on the partitioned route also
+    against its own plain version (``tridiag_solve_partitioned_plain``)
+    and timed at each systems-a-block count.
+    Tolerance: 256 ulps of max |x| (diagonally dominant systems and
+    M-matrices: Thomas and the partition method are backward stable with
+    error growth O(n eps), and the kernel's fused multiply-adds round each
+    step at most one ulp differently from the plain version's separate
+    multiply and subtract). The Andreasen-Huge systems of B1_AH are not
+    diagonally dominant at their boundary rows, and the same bound holds
+    there (measured: 68 ulps in float32 and in float64 on an H100 on the
+    staged and scratch routes). Returns, per dtype name, the worst error,
+    the first main-path shape's row and every main-path row."""
     gen = torch.Generator(device=DEV).manual_seed(11)
     worst, rows = {"float32": 0.0, "float64": 0.0}, {"float32": [], "float64": []}
     for n, batch, dtype, scale in B1_CASES:
@@ -443,32 +482,56 @@ def tridiag_cases(tridiag, lib) -> dict:
             d, dl, du = (u(2.0, 3.0), u(-0.1, 0.1), u(-0.1, 0.1)) if scale > 1 else (
                 u(4.0, 6.0), u(-1.0, 1.0), u(-1.0, 1.0))
             b = torch.randn((n, batch), dtype=dtype, device=DEV, generator=gen) * max(1.0, scale / 10)
-        plan = tridiag.thomas_plan(n, dtype)
+        plan = tridiag.thomas_plan(n, dtype, batch)
+        routes = dict(tridiag.tridiag_solve_cuda.launches_by_route)
         x = tridiag.tridiag_solve_cuda(dl, d, du, b)
         torch.cuda.synchronize()
+        check(tridiag.tridiag_solve_cuda.launches_by_route[plan.route] == routes[plan.route] + 1,
+              f"B1 n={n} batch={batch} counted on its route {plan.route}")
         ref = tridiag.tridiag_solve_plain(dl, d, du, b)
         err = float((x - ref).abs().max())
         eps = EPS32 if dtype == torch.float32 else EPS64
-        bound = 256 * eps * max(1.0, float(ref.abs().max()))
+        xmax = max(1.0, float(ref.abs().max()))
+        bound = 256 * eps * xmax
+        extra = {}
+        if plan.route == "partitioned":
+            part = tridiag.tridiag_solve_partitioned_plain(dl, d, du, b)
+            extra["max_abs_err_partitioned_plain"] = float((x - part).abs().max())
+            check(extra["max_abs_err_partitioned_plain"] <= bound,
+                  f"B1 partitioned kernel agrees with its plain version at n={n} batch={batch}")
         log(f"  B1 n={n} batch={batch} {str(dtype)[6:]}{' x%g' % scale if scale > 1 else ''}"
             f"{' AH systems' if ah_like else ''} "
-            f"({plan.route}, {plan.threads} a block, "
-            f"{plan.smem} B shared): max|kernel-plain|={err:.3e} (bound {bound:.3e})")
+            f"({plan.route}, {plan.systems} systems a block, "
+            f"{plan.smem} B shared): max|kernel-plain|={err:.3e} = {err / xmax / eps:.1f} ulps "
+            f"of max|x| (bound 256)" + "".join(f", {k} {v:.3e}" for k, v in extra.items()))
         check(err <= bound and bool(torch.isfinite(x).all()),
               f"B1 kernel agrees with plain at n={n} batch={batch} {dtype}")
         if dtype == F64 and (n, batch) in B1_STAGED_F64:
             check(plan.route == "staged", f"thomas_plan stages n={n} batch={batch} float64")
+        want_route = ("scratch" if (n, batch, dtype) in B1_SCRATCH else "staged"
+                      if 4 * n * 32 * d.element_size() <= 200 * 1024 else "partitioned")
+        check(plan.route == want_route, f"thomas_plan routes n={n} batch={batch} {dtype} "
+              f"to {want_route}: {plan}")
         key = str(dtype)[6:]
         worst[key] = max(worst[key], err)
         if (n, batch, dtype) not in B1_MAIN:
             continue
-        staged = lambda: tridiag.tridiag_solve_cuda(dl, d, du, b)
+        planned = lambda: tridiag.tridiag_solve_cuda(dl, d, du, b)
         scratch = scratch_route(lib, dl, d, du, b)
-        turns = [device_ms(f, 20, CALLS) for f in (staged, scratch, scratch, staged)]
-        # the plan's choice of systems a block against the other tiles
-        tiles = {S: round(device_ms(staged_route(lib, dl, d, du, b, S), 20, CALLS), 5)
-                 for S in (32, 64, 128) if 4 * n * S * d.element_size() <= 232448}
-        plain_ms = device_ms(lambda: tridiag.tridiag_solve_plain(dl, d, du, b), 5, CALLS)
+        turns = [device_ms(f, 20, CALLS) for f in (planned, scratch, scratch, planned)]
+        if plan.route == "staged":
+            # the plan's choice of systems a block against the other tiles
+            extra["ms_by_systems_a_block"] = {
+                S: round(device_ms(staged_route(lib, dl, d, du, b, S), 20, CALLS), 5)
+                for S in (32, 64, 128) if 4 * n * S * d.element_size() <= 232448}
+        else:
+            extra["ms_by_systems_a_block"] = {
+                S: round(device_ms(partitioned_route(lib, dl, d, du, b, S), 20, CALLS), 5)
+                for S in (4, 8, 16) if tridiag.partitioned_smem(n, dtype, S) <= 232448}
+        # the plain loop is n Python steps of eager launches: fewer calls a
+        # graph at large n keep its capture short
+        plain_ms = device_ms(lambda: tridiag.tridiag_solve_plain(dl, d, du, b), 5,
+                             CALLS if n <= 300 else 2)
         rows[key].append(timing_row(
             f"B1 {B1_MAIN[n, batch, dtype]} n={n} batch={batch} {key}",
             (turns[0] + turns[3]) / 2, plain_ms, 5 * n * batch * d.element_size(),
@@ -476,12 +539,12 @@ def tridiag_cases(tridiag, lib) -> dict:
             # H100), where the kernel holds 68 ulps of the plain loop
             9 * n * batch, dense_solve_ms(dl, d, du, b, x, 1e-2 if ah_like else 1e-3),
             ops_s=F32_OPS_S if dtype == F32 else F64_OPS_S,
-            scratch_route_ms=(turns[1] + turns[2]) / 2,
-            turns=[round(t, 5) for t in turns], ms_one_call_a_graph=device_ms(staged, 20),
-            systems_a_block=plan.threads,
-            ms_by_systems_a_block=tiles))
+            thomas_route=plan.route, scratch_route_ms=(turns[1] + turns[2]) / 2,
+            turns=[round(t, 5) for t in turns], ms_one_call_a_graph=device_ms(planned, 20),
+            systems_a_block=plan.systems, max_abs_err=err, rel_err=err / xmax, **extra))
         del scratch
-    return {key: {"max_abs_err": worst[key], **rows[key][0], "shapes": rows[key]}
+    return {key: {"max_abs_err": worst[key], **{k: v for k, v in rows[key][0].items()
+                                                if k != "max_abs_err"}, "shapes": rows[key]}
             for key in rows}
 
 
@@ -500,6 +563,20 @@ def staged_route(lib, dl, d, du, b, S):
         err = staged(*(a.data_ptr() for a in (dl, d, du, b, x)), n,
                      batch, S, torch.cuda.current_stream().cuda_stream)
         check(err == 0, f"staged-route launch (S={S}) returned {err}")
+    return run
+
+
+def partitioned_route(lib, dl, d, du, b, S):
+    """A call of the partitioned Thomas kernel with S systems a block,
+    outside the wrapper, so it counts no launch."""
+    n, batch = d.shape
+    x = torch.empty_like(b)
+    part = getattr(lib, f"ivt_thomas_partitioned_{_suffix(d)}")
+
+    def run():
+        err = part(*(a.data_ptr() for a in (dl, d, du, b, x)), n, batch, S,
+                   torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"partitioned-route launch (S={S}) returned {err}")
     return run
 
 
@@ -949,18 +1026,19 @@ def make_chain(rng, n_symbols: int, hours: int, drop_frac: float):
     return names, strike, callput, cols, keep
 
 
-def pack_compact(chain, rows, start_minute: int, bucket: int, columns):
+def pack_compact(chain, rows, start_minute: int, bucket: int, columns, dtype=np.float32):
     """One compact batch with the fields of the JAX package's
-    ``PackedBatch``: only the observations travel, as (N, C) values with
-    row and grid-slot coordinates; N is padded to a power of two >= 1024
-    with rows marked out of range."""
+    ``PackedBatch``: only the observations travel, as (N, C) values in
+    ``dtype`` (the batch's compute dtype) with row and grid-slot
+    coordinates; N is padded to a power of two >= 1024 with rows marked
+    out of range."""
     names, strike, callput, cols, keep = chain
     B, H, C = len(rows), cols.shape[1], cols.shape[2]
     r, h = np.nonzero(keep[rows])                 # row-major: (row, slot) sorted
     N = 1024
     while N < len(r):
         N *= 2
-    obs_vals = np.full((N, C), np.nan, np.float32)
+    obs_vals = np.full((N, C), np.nan, dtype)
     obs_vals[:len(r)] = cols[rows][r, h]
     obs_row = np.full(N, B, np.int32)
     obs_row[:len(r)] = r
@@ -1185,7 +1263,7 @@ def compare_fused(gpu, cpu, config, what, filled_scale=None) -> dict:
 
 
 def pipeline_checks(main, runner, tasks, agg) -> dict:
-    """(a) B2 at the candle stage on a real batch, (b) two batches on CPU
+    """(a) B2 at the candle stage on a real batch, (b) batch 0 on CPU
     tensors, (e) the cubic batch on CPU tensors; none counts toward the
     main path's launches."""
     config = main["config"]
@@ -1247,6 +1325,84 @@ def pipeline_checks(main, runner, tasks, agg) -> dict:
     errs["cubic"] = compare_fused(main["cubic"], cpu, cubic_cfg, "cubic batch",
                                   filled_scale=64)
     return {"b2_err": b2_err, "errs": errs}
+
+
+def first_rows(res: dict, k: int, symbols) -> dict:
+    """A fused batch's result cut to its first ``k`` rows (``symbols``
+    their names): every array's batch axis, the failed symbols among
+    them."""
+    def cut(v):
+        if isinstance(v, dict):
+            return {key: cut(x) for key, x in v.items()}
+        return v[:k] if isinstance(v, np.ndarray) else v
+    out = {key: cut(v) for key, v in res.items() if key != "failed"}
+    out["failed"] = {s: r for s, r in res["failed"].items() if s in set(symbols)}
+    return out
+
+
+def cubic_30_day(runner, tasks, segment_ohlcv, tridiag, reset_counts, read_by_dtype) -> dict:
+    """Phase 5 (a): the 30-day cubic batch (CUBIC30) through ``fused_batch``
+    on the card in float32 and float64: B1 and B2 once each, B1 on the
+    partitioned route, OHLC integrity, the quality gate, candle counts and
+    volume preservation, device ms by stage; its first 32 symbols against
+    the same symbols on CPU tensors, float32 at phase 5's cubic
+    tolerances, float64 with keys, masks and candle counts equal and
+    ``filled`` within 1e-9 of max(1, |x|). Returns each dtype's B1 and B2
+    launches and routes, stage ms and host seconds."""
+    P = CUBIC30
+    rng = np.random.default_rng(P["seed"])
+    start = int(np.datetime64("2023-03-20T09:00", "m").astype(np.int64))
+    chain = make_chain(rng, P["symbols"], P["hours"], 0.0)
+    pack = lambda k, dtype: pack_compact(chain, np.arange(k), start, P["bucket"],
+                                         tasks.ALL_COLS, np.dtype(dtype))
+    out, kept = {}, {}
+    for dtype in ("float32", "float64"):
+        batch = pack(P["symbols"], dtype)
+        config = pipeline_config("cubic")
+        config.processing.dtype = dtype
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats()
+        res, ms, wall = timed_batch(runner, batch, config)
+        counts = read_by_dtype()
+        by_route = dict(tridiag.tridiag_solve_cuda.launches_by_route)
+        b1 = "b1_f32" if dtype == "float32" else "b1_f64"
+        check(res["method"] == "cubic" and res["filled"].shape == (P["symbols"], 8, P["bucket"])
+              and res["filled"].dtype == np.dtype(dtype),
+              f"(a) the 30-day batch ran cubic in {dtype}, {res['filled'].shape}")
+        check(counts[b1] == 1 and sum(counts.values()) == 2 and counts["b2"] == 1
+              and by_route == {"staged": 0, "partitioned": 1, "scratch": 0},
+              f"(a) {dtype}: B1 once on the partitioned route and B2 once: {counts}, {by_route}")
+        rows = check_batch(res, segment_ohlcv, f"(a) 30-day cubic batch {dtype}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        log(f"  (a) 30-day cubic batch {P['symbols']} x {P['hours']} h -> {P['bucket']} "
+            f"minutes, {dtype}: {wall * 1e3:.1f} ms host incl. readback, peak {peak:.2f} GiB; "
+            f"device ms " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+            + f"; B1 {by_route}, {rows['interp']:,} interpolated rows")
+        out[dtype] = {"counts": counts, "by_route": by_route, "stage_ms": ms, "host_s": wall,
+                      "peak_gb": peak}
+        kept[dtype] = first_rows(res, P["cpu"], batch.symbols[:P["cpu"]])
+        del res
+    config = pipeline_config("cubic")
+    t0 = time.perf_counter()
+    cpu = runner.fused_batch(pack(P["cpu"], "float32"), config, "cpu")
+    log(f"  (a) its first {P['cpu']} symbols on CPU tensors in {time.perf_counter() - t0:.1f} s")
+    out["float32"]["cpu"] = compare_fused(kept["float32"], cpu, config,
+                                          "(a) 30-day cubic batch float32", filled_scale=64)
+    config.processing.dtype = "float64"
+    cpu = runner.fused_batch(pack(P["cpu"], "float64"), config, "cpu")
+    gpu = kept["float64"]
+    for k in ("keys", "price_col", "valid", "is_interpolated", "minutes", "base_bucket"):
+        check(np.array_equal(gpu[k], cpu[k]), f"(a) 30-day float64: {k} equal")
+    check(np.array_equal(gpu["candles"]["count"], cpu["candles"]["count"]),
+          "(a) 30-day float64: candle counts equal")
+    a, b = gpu["filled"], cpu["filled"]
+    check(np.array_equal(np.isnan(a), np.isnan(b)), "(a) 30-day float64: filled NaN masks equal")
+    d = np.nan_to_num(np.abs(a - b)) / np.maximum(1.0, np.abs(np.nan_to_num(b)))
+    check(float(d.max()) <= 1e-9, f"(a) 30-day float64: filled within 1e-9 ({d.max():.3e})")
+    log(f"  (a) 30-day float64 vs CPU tensors on {P['cpu']} symbols: keys, masks and candle "
+        f"counts equal, filled max rel err {d.max():.3e}")
+    out["float64"]["filled_rel_err"] = float(d.max())
+    return out
 
 
 # -- phase 6: the host runner -------------------------------------------------
@@ -1339,14 +1495,17 @@ def tables_equal(a_store, b_store, what: str, symbols=None) -> int:
     return differ
 
 
-def compare_tables_cpu(card, cpu, symbols, min_spread) -> dict:
+def compare_tables_cpu(card, cpu, symbols, min_spread, cubic_scale=None) -> dict:
     """(c): the card's tables for ``symbols`` against the same symbols run
     on CPU tensors, at phase 5's tolerances: keys, flags and counts exact;
-    interpolated values within 2 ulps of max(1, |x|), greeks within 64
-    eps32 of each greek's largest |x|; 1-minute OHLCV within one rounding
-    step plus 8 ulps, a row beyond that a minimum-spread flip (at most
-    0.1 % of rows), values that differ at all at most 1 %; 5-minute
-    candles within one step unless their bucket holds such a row."""
+    interpolated values within 2 ulps of max(1, |x|) (a cubic run's
+    spline columns, ``cubic_scale`` given: within that many eps32 of each
+    column's largest |x|, phase 5's cubic bound), greeks within 64 eps32
+    of each greek's largest |x|; 1-minute OHLCV within one rounding step
+    plus 8 ulps, a row beyond that a minimum-spread flip (at most 0.1 % of
+    rows), values that differ at all at most 1 %; 5-minute candles within
+    one step unless their bucket holds such a row."""
+    from iv_interpolation_tpu_torch.pipeline.ingest import INTERP_COLS
     interp = [read_table(s, "interpolated_trading_tickers", symbols) for s in (card, cpu)]
     a, b = interp
     same = lambda x, y, cols: all(np.array_equal(x[c].to_numpy(), y[c].to_numpy())
@@ -1361,8 +1520,11 @@ def compare_tables_cpu(card, cpu, symbols, min_spread) -> dict:
         x, y = a[c].to_numpy(np.float64), b[c].to_numpy(np.float64)
         check(np.array_equal(np.isnan(x), np.isnan(y)), f"(c) {c} NaN mask")
         d = np.nan_to_num(np.abs(x - y))
-        check(bool((d <= 2 * EPS32 * np.maximum(1.0, np.abs(np.nan_to_num(y)))).all()),
-              f"(c) {c} within 2 ulps (max {d.max():.3e})")
+        if cubic_scale is not None and c in INTERP_COLS:
+            bound = cubic_scale * EPS32 * np.nanmax(np.abs(y))
+        else:
+            bound = 2 * EPS32 * np.maximum(1.0, np.abs(np.nan_to_num(y)))
+        check(bool((d <= bound).all()), f"(c) {c} within its bound (max {d.max():.3e})")
         worst[c] = float(d.max())
     for g in ("delta", "gamma", "theta", "vega", "rho"):
         x, y = a[g].to_numpy(np.float64), b[g].to_numpy(np.float64)
@@ -1583,6 +1745,119 @@ def runner_small_scale(work, reset_counts, read_counts) -> dict:
     return {k: staged_counts[k] + cubic_counts[k] for k in staged_counts}
 
 
+def compare_tables_f64(card, cpu, what: str, symbols=None) -> float:
+    """A float64 run's tables on the card against CPU tensors' (over
+    ``symbols`` when given): the same rows and columns, non-float columns
+    equal, NaN masks equal, and every float column within 1e-9 of max(1,
+    |x|) in all but at most 0.1 % of its rows (a value that sits on a
+    rounding step of the bridge may land on either side between the two
+    devices' exp and log). Returns the worst column median."""
+    worst = 0.0
+    for table in TABLE_KEYS:
+        a, b = read_table(card, table, symbols), read_table(cpu, table, symbols)
+        check(len(a) == len(b) and list(a.columns) == list(b.columns),
+              f"{what} {table}: {len(a)} rows on the card, {len(b)} on CPU tensors")
+        for c in a.columns:
+            x, y = a[c].to_numpy(), b[c].to_numpy()
+            if x.dtype.kind != "f":
+                check(bool((x == y).all()), f"{what} {table}.{c} equal")
+                continue
+            y = y.astype(np.float64)      # a memory store may keep an object column
+            check(np.array_equal(np.isnan(x), np.isnan(y)), f"{what} {table}.{c} NaN mask")
+            d = np.nan_to_num(np.abs(x - y)) / np.maximum(1.0, np.abs(np.nan_to_num(y)))
+            off = float((d > 1e-9).mean())
+            check(off <= 1e-3, f"{what} {table}.{c}: {off:.2%} of rows beyond 1e-9")
+            worst = max(worst, float(np.median(d)))
+        if table == "interpolated_trading_tickers":
+            check(a["iv"].dtype == np.float64, f"{what}: the run persists float64")
+    return worst
+
+
+def runner_30_day(work, reset_counts, read_by_dtype, tridiag, ops_tridiag) -> dict:
+    """Phase 6 (b): RUNNER30's 30-day cubic runs through
+    ``run_pipeline_fused`` from a parquet store (memory if pyarrow is
+    missing), float32 and float64: every symbol completed or skipped, none
+    in error, table rows equal to the manifests', every batch split into
+    cubic sub-batches, B1 and B2 once a sub-batch, every B1 launch on the
+    partitioned route; the first 16 symbols' tables against the same
+    symbols run on CPU tensors (float32 at phase 5's cubic tolerances,
+    float64 within 1e-9). Returns each dtype's launches, routes, sub-batch
+    count and B1 shapes (n, batch)."""
+    from collections import Counter
+    from iv_interpolation_tpu_torch.config import get_config
+    from iv_interpolation_tpu_torch.pipeline import runner as runner_mod
+    from iv_interpolation_tpu_torch.pipeline import storage as st
+    from iv_interpolation_tpu_torch.pipeline.sample_data import generate_sample_tickers
+
+    P = RUNNER30
+    tickers = generate_sample_tickers(num_symbols=P["symbols"], hours=P["hours"],
+                                      seed=P["seed"], drop_frac=P["drop_frac"])
+    first = sorted(tickers["symbol"].unique())[:P["cpu_symbols"]]
+    out = {}
+    for dtype in ("float32", "float64"):
+        name = f"30d_{dtype}"
+        store = make_store(st, work / name / "data")
+        store.write(st.TICKERS, tickers, upsert_keys=["symbol", "date"])
+        cfg = runner_config(get_config, work / name, P["batch"], "cubic")
+        cfg.processing.dtype = dtype
+        shapes, solve = Counter(), ops_tridiag.tridiag_solve_cuda
+
+        def recorded(dl, d, du, b):
+            shapes[tuple(d.shape)] += 1
+            return solve(dl, d, du, b)
+        reset_counts()
+        ops_tridiag.tridiag_solve_cuda = recorded
+        try:
+            with DispatchProbe(runner_mod) as probe:
+                t = time.perf_counter()
+                res = runner_mod.PipelineRunner(cfg, store).run_pipeline_fused()
+                wall = time.perf_counter() - t
+        finally:
+            ops_tridiag.tridiag_solve_cuda = solve
+        counts = read_by_dtype()
+        by_route = dict(tridiag.tridiag_solve_cuda.launches_by_route)
+        n_sub = len(probe.methods)
+        b1 = "b1_f32" if dtype == "float32" else "b1_f64"
+        check(set(probe.methods) == {"cubic"} and n_sub > 1,
+              f"(b) {dtype}: the 30-day batch split into cubic sub-batches: {probe.methods}")
+        check(counts[b1] == n_sub and counts["b2"] == n_sub and sum(counts.values()) == 2 * n_sub
+              and by_route == {"staged": 0, "partitioned": n_sub, "scratch": 0},
+              f"(b) {dtype}: B1 and B2 once a sub-batch ({n_sub}), every B1 launch on the "
+              f"partitioned route: {counts}, {by_route}")
+        check(all(tridiag.thomas_plan(n, getattr(torch, dtype), m).route == "partitioned"
+                  for n, m in shapes) and (SUB_N, 48) in shapes,
+              f"(b) {dtype}: every sub-batch shape plans to the partitioned route, phase 2's "
+              f"sub-batch row ({SUB_N}, 48) among them: {dict(shapes)}")
+        for k, table in (("task1", st.INTERPOLATED), ("bridge", st.MINUTE_CANDLES),
+                         ("task2", st.RECONSTRUCTED)):
+            by = res[k]["by_status"]
+            check(set(by) <= {"completed", "skipped"} and by.get("completed", 0) > 0
+                  and sum(by.values()) == P["symbols"],
+                  f"(b) {dtype} {k}: every symbol completed or skipped, none in error: {by}")
+            check(store.count(table) == res[k]["output_rows"] > 0,
+                  f"(b) {dtype} {table}: {store.count(table)} rows = the manifest's")
+        cpu_store = st.MemoryStore()
+        cpu_store.write(st.TICKERS, tickers[tickers["symbol"].isin(first)])
+        cpu_cfg = runner_config(get_config, work / f"{name}_cpu", P["batch"], "cubic")
+        cpu_cfg.processing.dtype = dtype
+        t = time.perf_counter()
+        runner_mod.PipelineRunner(cpu_cfg, cpu_store, device="cpu").run_pipeline_fused()
+        cpu_s = time.perf_counter() - t
+        if dtype == "float32":
+            cmp = compare_tables_cpu(store, cpu_store, first,
+                                     cpu_cfg.data_bridge.min_spread_percent, cubic_scale=64)
+        else:
+            cmp = {"worst_median": compare_tables_f64(store, cpu_store, f"(b) {dtype}", first)}
+        log(f"  (b) 30-day cubic runner {P['symbols']} x {P['hours']} h, {dtype}: {wall:.2f} s "
+            f"on the card, {n_sub} sub-batches, B1 {by_route}, shapes (n, batch) "
+            f"{dict(sorted(shapes.items()))}; statuses {res['task2']['by_status']}; its first "
+            f"{len(first)} symbols on CPU tensors in {cpu_s:.1f} s: {cmp}")
+        out[dtype] = {"counts": counts, "by_route": by_route, "sub_batches": n_sub,
+                      "shapes": dict(shapes), "wall_s": wall}
+        shutil.rmtree(work / name, ignore_errors=True)
+    return out
+
+
 def runner_float64(work, reset_counts) -> int:
     """Phase 6 (f): ``processing.dtype="float64"`` through
     ``run_pipeline_fused`` on the card, RUNNER_F64's 256 symbols x 2 days
@@ -1628,23 +1903,7 @@ def runner_float64(work, reset_counts) -> int:
               f"(f) float64 {table}: {store.count(table)} rows = the manifest's")
     check(by_dtype == {"float32": 0, "float64": n_batches},
           f"(f) B2 float64 once a batch ({n_batches}), never float32: {by_dtype}")
-    worst = 0.0
-    for table in TABLE_KEYS:
-        a, b = read_table(store, table), read_table(runs["cpu"][0], table)
-        check(len(a) == len(b) and list(a.columns) == list(b.columns),
-              f"(f) float64 {table}: {len(a)} rows on the card, {len(b)} on CPU tensors")
-        for c in a.columns:
-            x, y = a[c].to_numpy(), b[c].to_numpy()
-            if x.dtype.kind != "f":
-                check(bool((x == y).all()), f"(f) float64 {table}.{c} equal")
-                continue
-            check(np.array_equal(np.isnan(x), np.isnan(y)), f"(f) float64 {table}.{c} NaN mask")
-            d = np.nan_to_num(np.abs(x - y)) / np.maximum(1.0, np.abs(np.nan_to_num(y)))
-            off = float((d > 1e-9).mean())
-            check(off <= 1e-3, f"(f) float64 {table}.{c}: {off:.2%} of rows beyond 1e-9")
-            worst = max(worst, float(np.median(d)))
-        if table == "interpolated_trading_tickers":
-            check(a["iv"].dtype == np.float64, "(f) the float64 run persists float64")
+    worst = compare_tables_f64(store, runs["cpu"][0], "(f) float64")
     log(f"  (f) float64 pipeline, {P['symbols']} symbols x {P['hours']} h in {n_batches} "
         f"batches: {wall:.2f} s on the card, {runs['cpu'][2]:.2f} s on CPU tensors; "
         f"statuses {res['task2']['by_status']}; B2 launches {by_dtype}; tables equal to CPU "
@@ -2554,7 +2813,7 @@ def calibrated_task(store, tridiag, agg) -> dict:
 # (bench.py:328); the zero-penalty direct path at 8 x 2,048 in float64.
 # (e) phase 7's store with ah and rbf, every 8th underlying (32) also on
 # CPU tensors.
-AH = dict(B=512, E=8, m=16, n_grid=257, iters=16, cpu=64, Q=64, seed=22)
+AH = dict(B=512, E=8, m=16, n_grid=257, iters=16, cpu=64, Q=64, seed=22, seed2=122)
 RBF = dict(B=8, N=2048, iters=24, reduced_B=64, centers=512, queries=64, seed=23)
 FAMILY_RUNS = ("ah", "rbf")
 FAMILY_CPU_STRIDE = 8
@@ -2573,6 +2832,31 @@ def ah_quotes(B: int, seed: int):
         + 0.02 * np.sqrt(T)[..., None]
     iv[..., m // 2] *= 1.4
     return tuple(torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in (k, iv, T))
+
+
+class PartitionedSolves:
+    """While installed: solves on CPU tensors at shapes the launch plan
+    sends to the partitioned route run that route's plain version (the
+    kernel's order of operations) in place of the plain Thomas loop."""
+
+    def __init__(self, ops_tridiag, tridiag):
+        self.mod, self.tridiag = ops_tridiag, tridiag
+
+    def __enter__(self):
+        self.orig, self.calls = self.mod.tridiag_solve_cuda, 0
+
+        def solve(dl, d, du, b):
+            n, batch = d.shape
+            if (d.device.type == "cpu"
+                    and self.tridiag.thomas_plan(n, d.dtype, batch).route == "partitioned"):
+                self.calls += 1
+                return self.tridiag.tridiag_solve_partitioned_plain(dl, d, du, b)
+            return self.orig(dl, d, du, b)
+        self.mod.tridiag_solve_cuda = solve
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.tridiag_solve_cuda = self.orig
 
 
 class SolveRecorder:
@@ -2659,11 +2943,15 @@ def ah_phase(reset_counts, read_by_dtype, ops_tridiag) -> dict:
     surfaces against CPU tensors (flags equal, prices c within 1024 float32
     ulps of the unit price when the card's theta is replayed there, the
     reference's flag policy; an independent CPU fit with flags equal and
-    price_rmse within 1 %); the same 64 in float64 (B1's global-scratch
-    route): replayed within 1e-10 in price, an independent CPU float64 fit
-    with flags equal and price_rmse within 1e-4; ``eval_ah`` at 64 x 64
-    scattered queries against CPU tensors."""
+    price_rmse within 1 %); the same 64 in float64 (B1's partitioned
+    route, every launch): replayed within 1e-10 in price, an independent CPU float64 fit
+    with flags equal and price_rmse within 1e-4, and so a CPU fit whose
+    solves take the partitioned route's plain version, and both CPU fits
+    on 64 surfaces of a second seed; ``eval_ah`` at 64 x 64 scattered
+    queries against CPU tensors."""
     from iv_interpolation_tpu_torch.ops import andreasen_huge as ah
+    from iv_interpolation_tpu_torch.ops.cuda import tridiag
+    from iv_interpolation_tpu_torch.ops.cuda.tridiag import tridiag_solve_cuda
 
     B, E, m, C, Q = AH["B"], AH["E"], AH["m"], AH["cpu"], AH["Q"]
     kw = dict(n_grid=AH["n_grid"], n_iters=AH["iters"])
@@ -2715,7 +3003,7 @@ def ah_phase(reset_counts, read_by_dtype, ops_tridiag) -> dict:
     check(fits["flags_differ"] == 0 and fits["price_rmse_rel"] <= 0.01,
           f"(a) AH float32 fits on the card and on CPU tensors: flags equal, price_rmse within 1 %")
 
-    # (b) float64 on the card (B1's global-scratch route) against CPU float64
+    # (b) float64 on the card (B1's partitioned route) against CPU float64
     k64, iv64, T64 = (a[:C].double() for a in (k, iv, T))
     fit64 = lambda: ah.fit_eval_ah_surface(k64.to(DEV), iv64.to(DEV), T64.to(DEV), **kw)
     fit64()
@@ -2727,19 +3015,47 @@ def ah_phase(reset_counts, read_by_dtype, ops_tridiag) -> dict:
         torch.cuda.synchronize()
         host64 = time.perf_counter() - t
     counts64 = read_by_dtype()
+    by_route64 = dict(tridiag_solve_cuda.launches_by_route)
     check(counts64["b1_f64"] == sum(want.values()) and counts64["b1_f32"] == 0,
           f"(b) B1 float64 launches a float64 fit: {dict(rec64.by)}")
+    check(by_route64 == {"staged": 0, "partitioned": counts64["b1_f64"], "scratch": 0},
+          f"(b) every B1 float64 launch of the fit on the partitioned route: {by_route64}")
     replay64 = float((ah_replay(ah, out64["fit"], C) - out64["fit"].c.cpu()).abs().max())
     fits64 = fit_spread(out64, ah.fit_eval_ah_surface(k64, iv64, T64, **kw), C)
     ms64 = cuda_ms(fit64, 1)
     log(f"  (b) AH float64 {C} x {E} x {m}: {ms64:.1f} ms a call (CUDA events), "
-        f"{host64 * 1e3:.1f} ms host, B1 float64 {dict(rec64.by)}; the card's theta replayed on "
+        f"{host64 * 1e3:.1f} ms host, B1 float64 {dict(rec64.by)}, {by_route64}; the card's "
+        f"theta replayed on "
         f"CPU float64, max |c| gap {replay64:.3e} (bound 1e-10); an independent CPU float64 fit: "
         + ", ".join(f"{key} {v:.3e}" if isinstance(v, float) else f"{key} {v}"
                     for key, v in fits64.items()))
     check(replay64 <= 1e-10, f"(b) AH float64 within 1e-10 in price ({replay64:.3e})")
     check(fits64["flags_differ"] == 0 and fits64["price_rmse_rel"] <= 1e-4,
           "(b) AH float64 fits on the card and on CPU tensors: flags equal, price_rmse within 1e-4")
+    # witnesses of that gap: the card's fit against a CPU float64 fit whose
+    # solves take the partitioned route's plain version, and both CPU fits
+    # on the quotes of a second seed
+    def witness(k_, iv_, T_):
+        with PartitionedSolves(ops_tridiag, tridiag) as part:
+            fitted = ah.fit_eval_ah_surface(k_, iv_, T_, **kw)
+        check(part.calls == sum(want.values()),
+              f"(b) the witness fit solved every system by the partitioned plain version "
+              f"({part.calls})")
+        return fitted
+    gaps = {AH["seed"]: {"thomas": fits64,
+                         "partitioned": fit_spread(out64, witness(k64, iv64, T64), C)}}
+    k2, iv2, T2 = (a.double() for a in ah_quotes(C, AH["seed2"]))
+    out2 = ah.fit_eval_ah_surface(k2.to(DEV), iv2.to(DEV), T2.to(DEV), **kw)
+    gaps[AH["seed2"]] = {"thomas": fit_spread(out2, ah.fit_eval_ah_surface(k2, iv2, T2, **kw), C),
+                         "partitioned": fit_spread(out2, witness(k2, iv2, T2), C)}
+    for seed, by in gaps.items():
+        for plain, f in by.items():
+            log(f"  (b) seed {seed}, the card's float64 fit against a CPU fit by the {plain} "
+                "plain solve: " + ", ".join(f"{key} {v:.3e}" if isinstance(v, float)
+                                            else f"{key} {v}" for key, v in f.items()))
+            check(f["flags_differ"] == 0 and f["price_rmse_rel"] <= 1e-4,
+                  f"(b) seed {seed}, CPU fit by the {plain} plain solve: flags equal, "
+                  f"price_rmse within 1e-4")
 
     # (c) eval_ah at scattered queries on the float32 fit's first 64 surfaces
     rng = np.random.default_rng(AH["seed"] + 1)
@@ -2759,6 +3075,8 @@ def ah_phase(reset_counts, read_by_dtype, ops_tridiag) -> dict:
           f"(c) eval_ah: two B1 launches, prices within 1024 ulps of CPU tensors ({gap:.3e})")
     return {"surfaces_per_s": B / (ms / 1e3), "surfaces_per_s_host": B / host_s,
             "b1_f32": counts["b1_f32"] + eval_counts["b1_f32"], "b1_f64": counts64["b1_f64"],
+            "b1_f64_by_route": by_route64, "b1_f64_by_batch": dict(rec64.by),
+            "f64_gaps": gaps,
             "arbfree": frac, "price_rmse": price_rmse, "ms": ms, "ms64": ms64}
 
 
@@ -3582,6 +3900,7 @@ def mesh_rank(args: dict) -> int:
     def reset():
         tridiag.tridiag_solve_cuda.launches = 0
         tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
+        tridiag.tridiag_solve_cuda.launches_by_route.update(dict.fromkeys(tridiag.ROUTES, 0))
         agg.aggregate_ohlcv_cuda.launches = 0
 
     def read():
@@ -4340,24 +4659,36 @@ def main(argv=()) -> int:
           "float32 matmul precision pinned to full float32")
 
     # each main path runs with the launch counts set to 0 just before it
-    # and read just after it
+    # and read just after it; each read also keeps B1's launches by route
+    # since the last reset, under the phase it ran in
+    route_reads, phase_now = [], ["phases 3-4"]
+
     def reset_counts():
+        route_reads.append([phase_now[0], None])
         tridiag.tridiag_solve_cuda.launches = 0
         tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
+        tridiag.tridiag_solve_cuda.launches_by_route.update(dict.fromkeys(tridiag.ROUTES, 0))
         agg.aggregate_ohlcv_cuda.launches = 0
         agg.aggregate_ohlcv_cuda.launches_by_dtype.update(float32=0, float64=0)
 
+    def read_routes():
+        if route_reads:
+            route_reads[-1][1] = dict(tridiag.tridiag_solve_cuda.launches_by_route)
+
     def read_counts():
+        read_routes()
         return {"b1": tridiag.tridiag_solve_cuda.launches,
                 "b2": agg.aggregate_ohlcv_cuda.launches}
 
     def read_by_dtype():
+        read_routes()
         by = tridiag.tridiag_solve_cuda.launches_by_dtype
         return {"b1_f32": by["float32"], "b1_f64": by["float64"],
                 "b2": agg.aggregate_ohlcv_cuda.launches}
 
     def done(n):
         log(f"  phase {n} done at {time.perf_counter() - t_start:.1f} s")
+        phase_now[0] = "phases 3-4" if n == 2 else f"phase {n + 1}"
 
     if want(2):
         log("phase 2: kernels against their plain versions")
@@ -4394,15 +4725,21 @@ def main(argv=()) -> int:
               f"the pipeline launched B2 once a batch and B1 in the cubic batch: {fused}")
         log(f"  launches: {fused}")
         checks = pipeline_checks(pipe, runner, tasks, agg)
+        cubic30 = cubic_30_day(runner, tasks, segment_ohlcv, tridiag, reset_counts,
+                               read_by_dtype)
         done(5)
     if want(6):
         log("phase 6: the host runner")
         log(f"  card: {smi.splitlines()[0]}")
         host = host_runner(reset_counts, read_counts)
         log(f"  launches: {host['launches']}, B2 float64 {host['b2_f64_launches']}")
-        done(6)
         check(tridiag.tridiag_solve_cuda.launches_by_dtype["float64"] == 0,
-              "phases 3-6 solve in float32 only")
+              "phase 6's runs before (b) solve in float32 only")
+        runner30 = runner_30_day(Path(__file__).resolve().parent / "build" / "chip_smoke_runner",
+                                 reset_counts, read_by_dtype, tridiag, ops_tridiag)
+        shutil.rmtree(Path(__file__).resolve().parent / "build" / "chip_smoke_runner",
+                      ignore_errors=True)
+        done(6)
     store = None
     if want(7):
         log("phase 7: the surface task")
@@ -4526,6 +4863,8 @@ def main(argv=()) -> int:
         "tridiag_thomas_f32": {
             "surface step + streaming (phases 3-4)": surface_stream["b1"],
             "fused_batch (phase 5)": fused["b1"], "runner (phase 6)": host["launches"]["b1"],
+            "30-day cubic batch (phase 5 (a))": cubic30["float32"]["counts"]["b1_f32"],
+            "30-day cubic runner (phase 6 (b))": runner30["float32"]["counts"]["b1_f32"],
             "surface task (phase 7)": surf_task["launches"]["b1_f32"],
             "AH fit_eval + eval_ah (phase 10)": ah_res["b1_f32"],
             "AH surface task (phase 10)": fam["launches"]["b1_f32"],
@@ -4536,7 +4875,11 @@ def main(argv=()) -> int:
                 library["quick"]["launches"]["top-level"]["b1_f32"],
             "bench AH (phase 14)": benched["launches"]["ah"]["b1_f32"],
             "graft_entry.entry (phase 14)": benched["entry"]["b1_f32"]},
-        "tridiag_thomas_f64": {"surface task parity (phase 7)": surf_task["launches"]["b1_f64"],
+        "tridiag_thomas_f64": {"30-day cubic batch (phase 5 (a))":
+                                   cubic30["float64"]["counts"]["b1_f64"],
+                               "30-day cubic runner (phase 6 (b))":
+                                   runner30["float64"]["counts"]["b1_f64"],
+                               "surface task parity (phase 7)": surf_task["launches"]["b1_f64"],
                                "AH float64 fit (phase 10)": ah_res["b1_f64"],
                                "quickstart float64 (phase 13)":
                                    library["quick"]["launches"]["float64"]["b1_f64"],
@@ -4583,13 +4926,44 @@ def main(argv=()) -> int:
     agg_src = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/stream_agg.cu",
                   replaces="iv_interpolation_tpu/ops/pallas/stream_agg_pallas.py:163")
     # per kernel: the numbers of its first main-path shape (B1 float32 the
-    # surface step, B1 float64 the parity surface task's larger bucket, B2
-    # the candle stage), and every main-path shape under "shapes"
+    # surface step, B1 float64 the 30-day cubic batch, B2 the candle
+    # stage), and every main-path shape under "shapes"
     results = {"tridiag_thomas_f32": (thomas, b1["float32"]),
                "tridiag_thomas_f64": (thomas, b1["float64"]),
                "stream_agg": (agg_src, b2), "stream_agg_f64": (agg_src, b2_f64)}
-    kernels = [{"name": name, **source, "launches": sum(paths[name].values()),
-                "paths": paths[name], **rows} for name, (source, rows) in results.items()]
+    kernels = [{"name": name, "launches": sum(paths[name].values()), "paths": paths[name],
+                **rows, **source} for name, (source, rows) in results.items()]
+    # B1's launches by route on the paths that read them by dtype, and on
+    # every path of this process by phase, float32 and float64 together
+    # (phases 12 and 14 run their paths in processes of their own); counts
+    # set to 0 just before each path and read just after. Each partitioned-route
+    # row's launches on its path. The AH rows take phase 10 (b)'s float64
+    # fit, whose 64 surfaces solve the same systems at batches 64 (the
+    # steps) and 1,024 (the tangents); a fit's launches do not depend on
+    # its batch.
+    ah64 = ah_res["b1_f64_by_batch"]
+    by_phase = {}
+    for phase, routes in route_reads:
+        for route, k in (routes or {}).items():
+            if k:
+                by = by_phase.setdefault(phase, dict.fromkeys(tridiag.ROUTES, 0))
+                by[route] += k
+    on_path = {(719, 768, "float32"): cubic30["float32"]["counts"]["b1_f32"],
+               (719, 768, "float64"): cubic30["float64"]["counts"]["b1_f64"],
+               (SUB_N, 48, "float32"): runner30["float32"]["shapes"].get((SUB_N, 48), 0),
+               (257, 512, "float64"): ah64.get(("float64", AH["cpu"]), 0),
+               (257, 8192, "float64"): ah64.get(("float64", AH["cpu"] * AH["m"]), 0)}
+    for entry, dtype in zip(kernels, ("float32", "float64")):
+        for row in entry["shapes"]:
+            n, batch = (int(row["shape"].split(f"{k}=")[1].split()[0]) for k in ("n", "batch"))
+            if row["thomas_route"] == "partitioned":
+                row["launches_on_path"] = on_path[n, batch, dtype]
+        entry["launches_by_route"] = {
+            "30-day cubic batch (phase 5 (a))": cubic30[dtype]["by_route"],
+            "30-day cubic runner (phase 6 (b))": runner30[dtype]["by_route"],
+            **({"AH float64 fit (phase 10 (b))": ah_res["b1_f64_by_route"]}
+               if dtype == "float64" else {}),
+            "by phase, both dtypes": by_phase}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -138,6 +138,9 @@ def _declare(lib: ctypes.CDLL) -> None:
         # dl, d, du, b, x, c' scratch, n, batch, stream
         "ivt_thomas_scratch_f32": [p] * 6 + [i, ll, p],
         "ivt_thomas_scratch_f64": [p] * 6 + [i, ll, p],
+        # dl, d, du, b, x, n, batch, systems a block, stream
+        "ivt_thomas_partitioned_f32": [p] * 5 + [i, ll, i, p],
+        "ivt_thomas_partitioned_f64": [p] * 5 + [i, ll, i, p],
         # 7 inputs, 7 outputs, B, L, num_segments, bucket_minutes,
         # base_bucket, min_count, tile, threads, stream
         "ivt_stream_agg_i32": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],

@@ -17,6 +17,8 @@ from iv_interpolation_tpu.ops.pallas.tridiag_pallas import tridiag_solve_pallas
 from iv_interpolation_tpu.ops.tridiag import tridiag_matvec as jax_matvec
 from iv_interpolation_tpu.ops.tridiag import tridiag_solve as jax_solve
 from iv_interpolation_tpu_torch.ops.cuda.tridiag import (
+    LANES,
+    partitioned_smem,
     thomas_plan,
     tridiag_solve_cuda,
     tridiag_solve_plain,
@@ -103,18 +105,33 @@ def test_cpu_tensors_take_the_plain_version_without_a_launch(rng):
     torch.testing.assert_close(got, tridiag_solve_plain(*arrays), rtol=0, atol=0)
 
 
-# The launch plan: (route, systems a block) for n in float32 and float64.
-# The staged route holds 4 n S sizeof(T) bytes a block: S is the largest
-# of 128/64/32 that lets two blocks share an SM (<= 113 KiB each), else 32
-# alone while it fits in 200 KiB, else the global-scratch route.
+@pytest.mark.parametrize("n,dtype", [(719, np.float32), (257, np.float64)])
+def test_cpu_tensors_on_partitioned_shapes_count_no_route(rng, n, dtype):
+    """Shapes the card solves on the partitioned route: CPU tensors still
+    take the plain Thomas loop, and no route counts a launch."""
+    arrays = [torch.from_numpy(a) for a in _systems(rng, (n, 3), dtype)]
+    assert thomas_plan(n, arrays[1].dtype, 3).route == "partitioned"
+    before = dict(tridiag_solve_cuda.launches_by_route)
+    assert set(before) == {"staged", "partitioned", "scratch"}
+    got = tridiag_solve_cuda(*arrays)
+    assert tridiag_solve_cuda.launches_by_route == before
+    torch.testing.assert_close(got, tridiag_solve_plain(*arrays), rtol=0, atol=0)
+
+
+# The launch plan: (route, threads a block) for n in float32 and float64
+# at a batch that fills the card. The staged route holds 4 n S sizeof(T)
+# bytes a block: S is the largest of 128/64/32 that lets two blocks share
+# an SM (<= 113 KiB each), else 32 alone while it fits in 200 KiB. Beyond
+# that the partitioned route (32 lanes a system, S = 16/8/4 systems a
+# block), which takes every shape the global-scratch route took before.
 PLANS = {
     (1, torch.float32): ("staged", 128), (1, torch.float64): ("staged", 128),
     (2, torch.float32): ("staged", 128), (2, torch.float64): ("staged", 128),
     (48, torch.float32): ("staged", 128), (48, torch.float64): ("staged", 64),
     (50, torch.float32): ("staged", 128), (50, torch.float64): ("staged", 64),
     (166, torch.float32): ("staged", 32), (166, torch.float64): ("staged", 32),
-    (257, torch.float32): ("staged", 32), (257, torch.float64): ("scratch", 256),
-    (1000, torch.float32): ("scratch", 256), (1000, torch.float64): ("scratch", 256),
+    (257, torch.float32): ("staged", 32), (257, torch.float64): ("partitioned", 256),
+    (1000, torch.float32): ("partitioned", 128), (1000, torch.float64): ("partitioned", 128),
 }
 
 
@@ -126,14 +143,57 @@ def test_launch_plan_by_shape(n, dtype):
     assert plan.smem <= 227 * 1024
     if plan.route == "staged":
         assert plan.smem == 4 * n * plan.threads * size
-    # the scratch route exactly where even 32 systems' tiles do not fit
-    assert (plan.route == "scratch") == (4 * n * 32 * size > 200 * 1024)
+        assert plan.systems == plan.threads
+    else:
+        assert plan.route == "partitioned" and plan.threads == LANES * plan.systems
+        assert plan.smem == partitioned_smem(n, dtype, plan.systems) <= 200 * 1024
+    # the staged route exactly where 32 systems' tiles fit, as before
+    assert (plan.route == "staged") == (4 * n * 32 * size <= 200 * 1024)
 
 
 def test_launch_plan_route_boundaries():
     assert thomas_plan(400, torch.float32).route == "staged"
-    assert thomas_plan(401, torch.float32).route == "scratch"
+    assert thomas_plan(401, torch.float32).route == "partitioned"
     assert thomas_plan(200, torch.float64).route == "staged"
-    assert thomas_plan(201, torch.float64).route == "scratch"
+    assert thomas_plan(201, torch.float64).route == "partitioned"
     with pytest.raises(ValueError):
         thomas_plan(0, torch.float32)
+
+
+def test_launch_plan_scratch_only_beyond_four_systems_tiles():
+    """The global-scratch route stays beyond the partitioned route's
+    tiles: 4 systems of 32 segments of an odd stride in 200 KiB."""
+    for dtype, last in ((torch.float32, 3167), (torch.float64, 1567)):
+        for batch in (None, 48, 512, 8192):
+            assert thomas_plan(last, dtype, batch).route == "partitioned"
+            assert thomas_plan(last, dtype, batch).systems == 4
+            assert thomas_plan(last + 1, dtype, batch).route == "scratch"
+        assert partitioned_smem(last, dtype, 4) <= 200 * 1024 < partitioned_smem(last + 1, dtype, 4)
+
+
+@pytest.mark.parametrize("batch", [None, 48, 96, 512, 768, 1024, 8192])
+def test_launch_plan_partitions_the_old_scratch_shapes(batch):
+    """Every (n, dtype) the scratch route took up to n = 1,000 now takes
+    the partitioned route, at the paths' batches (a runner sub-batch, the
+    cubic batch, AH's step and tangents); the staged route keeps every
+    shape it took."""
+    for dtype, first in ((torch.float32, 401), (torch.float64, 201)):
+        for n in range(1, 1001):
+            plan = thomas_plan(n, dtype, batch)
+            assert plan.route == ("staged" if n < first else "partitioned"), (n, dtype)
+            if plan.route == "staged":
+                assert plan == thomas_plan(n, dtype)         # the batch does not matter
+            else:
+                assert plan.systems in (4, 8, 16)
+
+
+@pytest.mark.parametrize("n,dtype,batch,systems", [
+    (257, torch.float64, 512, 4), (257, torch.float64, 8192, 8),
+    (719, torch.float32, 768, 8), (719, torch.float32, 8192, 8),
+    (719, torch.float64, 768, 8), (650, torch.float32, 48, 4),
+    (401, torch.float32, 1 << 20, 16), (500, torch.float32, 2048, 16)])
+def test_launch_plan_systems_a_block_by_batch(n, dtype, batch, systems):
+    """S is the smallest of 4/8/16 whose blocks number at most 132 (one
+    an SM), else the largest whose blocks pair on an SM, else 4."""
+    plan = thomas_plan(n, dtype, batch)
+    assert (plan.route, plan.systems) == ("partitioned", systems)
