@@ -1,5 +1,6 @@
-"""Step metrics: wall-clock spans, rows per second, device memory and a
-profiler trace (port of ``iv_interpolation_tpu/monitoring/metrics.py``).
+"""Step metrics: wall-clock spans, rows per second, device memory, a
+profiler trace and the program's named spans in it (port of
+``iv_interpolation_tpu/monitoring/metrics.py``).
 
 The device memory comes from PyTorch's CUDA caching allocator instead of
 ``jax``; JSON snapshots keep the JAX package's layout; the trace is a
@@ -12,7 +13,7 @@ import json
 import os
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
@@ -99,10 +100,15 @@ class StepMetrics:
 
     @contextmanager
     def step(self, name: str, items: int = 0):
-        """Bracket a device computation; the caller must wait for the
-        device inside (or the span is the enqueue only)."""
+        """Bracket a device computation on the host clock, and open
+        :func:`span` ``name`` around it (the step in a profiler trace).
+        ``wall_s`` holds the wait for the device only where the block
+        waits: the runner's steps end in a host readback, so theirs do
+        (in the fused loop the batch was dispatched before its step, which
+        then holds the wait, the readback and the unpack)."""
         t0 = time.perf_counter()
-        yield
+        with span(name):
+            yield
         dt = time.perf_counter() - t0
         rec = {
             "name": name,
@@ -142,6 +148,29 @@ class StepMetrics:
         with open(path, "w") as f:
             json.dump(payload, f, indent=2)
         return path
+
+
+_NO_SPAN = nullcontext()
+
+
+def span(name: str):
+    """A named span of the program in the profiler's trace.
+
+    While a ``torch.profiler`` profile records, this is
+    ``torch.profiler.record_function(name)``: a ``user_annotation`` event
+    on the calling thread, on the clock of the trace's kernels, which a
+    reader joins to the kernels launched inside it through their launch
+    correlation. Otherwise it is one shared no-op context, so an
+    unprofiled call pays a flag check where an unconditional
+    ``record_function`` would pay microseconds a span. Names are
+    ``iv.<layer>.<stage>``; a ``[...]`` suffix carries the call's shapes
+    and groups under the name before it. Torch is looked up, not
+    imported: a process that never imported it records nothing.
+    """
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextmanager

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from iv_interpolation_tpu_torch.monitoring.metrics import span
 from iv_interpolation_tpu_torch.ops.tridiag import tridiag_solve_batch_last
 
 
@@ -105,14 +106,15 @@ def _bracket(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     the same count as the reference's dense compare), clipped to
     ``[0, n-2]``: points left of x1 use the first interval and points
     right of x[n-2] the last, which extrapolates with the boundary cubic
-    as SciPy's ``extrapolate=True`` does.
+    as SciPy's ``extrapolate=True`` does. Span ``iv.spline.bracket``.
     """
-    n = x.shape[-1]
-    batch = torch.broadcast_shapes(x.shape[:-1], t.shape[:-1])
-    interior = x[..., 1:-1].expand(*batch, n - 2).contiguous()
-    queries = t.expand(*batch, t.shape[-1]).contiguous()
-    ge = torch.searchsorted(interior, queries, right=True)
-    return ge.clamp(0, n - 2)
+    with span("iv.spline.bracket"):
+        n = x.shape[-1]
+        batch = torch.broadcast_shapes(x.shape[:-1], t.shape[:-1])
+        interior = x[..., 1:-1].expand(*batch, n - 2).contiguous()
+        queries = t.expand(*batch, t.shape[-1]).contiguous()
+        ge = torch.searchsorted(interior, queries, right=True)
+        return ge.clamp(0, n - 2)
 
 
 def _gather_knots(idx: torch.Tensor, *arrays: torch.Tensor):

@@ -18,6 +18,7 @@ from typing import NamedTuple
 import torch
 
 from iv_interpolation_tpu_torch._build import check_launch, load_library
+from iv_interpolation_tpu_torch.monitoring.metrics import span
 
 _DTYPES = (torch.float32, torch.float64)
 _TILES = (128, 64, 32)          # systems a block of the staged route owns
@@ -200,14 +201,17 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     launches, one a call, ``tridiag_solve_cuda.launches_by_dtype`` the same
     launches by dtype name (``"float32"``, ``"float64"``) and
     ``tridiag_solve_cuda.launches_by_route`` by route (``"staged"``,
-    ``"partitioned"``, ``"scratch"``).
+    ``"partitioned"``, ``"scratch"``). Span ``iv.tridiag.b1[<route> n=<n>
+    batch=<batch> <dtype>]``, route ``plain`` on the CPU.
     """
     _check(dl, d, du, b)
+    n, batch = d.shape
+    dtype = str(d.dtype)[6:]
     if d.device.type == "cpu":
-        return tridiag_solve_plain(dl, d, du, b)
+        with span(f"iv.tridiag.b1[plain n={n} batch={batch} {dtype}]"):
+            return tridiag_solve_plain(dl, d, du, b)
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
-    n, batch = d.shape
     x = torch.empty_like(b)
     if batch == 0:
         return x
@@ -215,7 +219,8 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
     lib = load_library()
     suffix = "f32" if d.dtype == torch.float32 else "f64"
     ptrs = [a.data_ptr() for a in (dl, d, du, b, x)]
-    with torch.cuda.device(d.device):
+    with span(f"iv.tridiag.b1[{plan.route} n={n} batch={batch} {dtype}]"), \
+            torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
         if plan.route == "staged":
             err = getattr(lib, f"ivt_thomas_staged_{suffix}")(
@@ -229,7 +234,7 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
                 *ptrs, cp.data_ptr(), n, batch, stream)
     check_launch(err, f"thomas ({plan.route})")
     tridiag_solve_cuda.launches += 1
-    tridiag_solve_cuda.launches_by_dtype[str(d.dtype)[6:]] += 1
+    tridiag_solve_cuda.launches_by_dtype[dtype] += 1
     tridiag_solve_cuda.launches_by_route[plan.route] += 1
     return x
 

@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from iv_interpolation_tpu_torch.monitoring.metrics import span
 from iv_interpolation_tpu_torch.ops.cubic_spline import _bracket
 from iv_interpolation_tpu_torch.surface.arbitrage import arbitrage_flags, butterfly_g
 
@@ -174,14 +175,17 @@ def fit_eval_surface_grid(ops: SplineOperator, iv: torch.Tensor,
 
     Returns the grid keys of ``surface.fit_eval_surface``'s dict
     (k_grid/w_grid/iv_grid/g/butterfly_ok/calendar_ok). All expiries must
-    share one query grid for ``calendar_ok`` to mean anything.
+    share one query grid for ``calendar_ok`` to mean anything. Spans
+    ``iv.grid.contract`` (w and the product) and ``iv.surface.diagnostics``.
     """
-    T = _expiry_column(expiries)
-    w = iv * iv * T                                           # (B, E, n)
-    out = torch.einsum("ben,enq->beq", w, ops.EC.to(w.dtype))
-    m = ops.E0.shape[-1]
-    k_grid = ops.queries[None].expand(*w.shape[:-1], m)
-    return _grid_diagnostics(out, m, k_grid, T)
+    with span("iv.grid.contract"):
+        T = _expiry_column(expiries)
+        w = iv * iv * T                                       # (B, E, n)
+        out = torch.einsum("ben,enq->beq", w, ops.EC.to(w.dtype))
+        m = ops.E0.shape[-1]
+        k_grid = ops.queries[None].expand(*w.shape[:-1], m)
+    with span("iv.surface.diagnostics"):
+        return _grid_diagnostics(out, m, k_grid, T)
 
 
 def fit_eval_surface_grid_batched(ops: SplineOperator, iv: torch.Tensor,

@@ -19,6 +19,7 @@ import dataclasses
 
 import torch
 
+from iv_interpolation_tpu_torch.monitoring.metrics import span
 from iv_interpolation_tpu_torch.ops.cubic_spline import (
     eval_cubic_spline,
     eval_cubic_spline_deriv,
@@ -180,12 +181,23 @@ def _eval_slices(fit: SurfaceFit, k_grid: torch.Tensor) -> torch.Tensor:
     raise ValueError(f"unknown smile method: {fit.method!r}")
 
 
-def _slice_g(fit: SurfaceFit, k_grid: torch.Tensor, w_grid: torch.Tensor) -> torch.Tensor:
-    """Butterfly g on the evaluated slices, closed-form where available."""
+def _slice_derivs(fit: SurfaceFit, k_grid: torch.Tensor):
+    """(w', w'') of the spline slices at (B, E, m) query log-moneyness;
+    None for the calibrated families, whose g needs no evaluated
+    derivatives."""
+    if fit.method not in _SPLINE_METHODS:
+        return None
+    knots = (fit.k, fit.w, fit.coefs)
+    return (eval_cubic_spline_deriv(*knots, k_grid),
+            eval_cubic_spline_second_deriv(*knots, k_grid))
+
+
+def _slice_g(fit: SurfaceFit, k_grid: torch.Tensor, w_grid: torch.Tensor,
+             derivs) -> torch.Tensor:
+    """Butterfly g on the evaluated slices, closed-form where available;
+    ``derivs`` is :func:`_slice_derivs`' result on the same grid."""
     if fit.method in _SPLINE_METHODS:
-        knots = (fit.k, fit.w, fit.coefs)
-        return butterfly_g(k_grid, w_grid, eval_cubic_spline_deriv(*knots, k_grid),
-                           eval_cubic_spline_second_deriv(*knots, k_grid))
+        return butterfly_g(k_grid, w_grid, *derivs)
     if fit.method == "svi":
         return svi_g(fit.coefs, k_grid)
     if fit.method == "essvi":
@@ -250,26 +262,37 @@ def fit_eval_surface(k: torch.Tensor, iv: torch.Tensor, expiries: torch.Tensor,
     for the interpolating cubic spline; the serving quality gate of the
     svi, essvi, sabr and smoothing fits). The other arguments are
     :func:`fit_surface`'s.
+
+    The stages are the spans ``iv.surface.fit``, ``.grid``, ``.eval``
+    (w, and w' and w'' for the splines), ``.diagnostics`` (g, iv and the
+    flags) and ``.fit_rmse``, disjoint and covering the call.
     """
-    fit = fit_surface(k, iv, expiries, method=method, svi_iters=svi_iters,
-                      svi_butterfly_penalty=svi_butterfly_penalty,
-                      svi_weighting=svi_weighting, smoothing_lam=smoothing_lam,
-                      svi_unroll=svi_unroll, spline_bc=spline_bc,
-                      svi_loss=svi_loss, svi_huber_delta=svi_huber_delta)
-    k_grid = common_support_grid(k, n_grid)
-    w_grid = _eval_slices(fit, k_grid)
-    g = _slice_g(fit, k_grid, w_grid)
-    iv_grid = torch.sqrt(w_grid.clamp_min(0.0)
-                         / fit.expiries[..., None].clamp_min(1e-12))
-    butterfly_ok, calendar_ok = arbitrage_flags(w_grid, g)
-    w_obs = iv * iv * expiries[..., None]
-    err2 = (_eval_slices(fit, k) - w_obs) ** 2
-    if quote_mask is not None:
-        m_ = quote_mask.to(err2.dtype)
-        fit_rmse = torch.sqrt((err2 * m_).sum(dim=(-2, -1))
-                              / m_.sum(dim=(-2, -1)).clamp_min(1.0))
-    else:
-        fit_rmse = torch.sqrt(err2.mean(dim=(-2, -1)))
+    with span("iv.surface.fit"):
+        fit = fit_surface(k, iv, expiries, method=method, svi_iters=svi_iters,
+                          svi_butterfly_penalty=svi_butterfly_penalty,
+                          svi_weighting=svi_weighting, smoothing_lam=smoothing_lam,
+                          svi_unroll=svi_unroll, spline_bc=spline_bc,
+                          svi_loss=svi_loss, svi_huber_delta=svi_huber_delta)
+    with span("iv.surface.grid"):
+        k_grid = common_support_grid(k, n_grid)
+    with span("iv.surface.eval"):
+        w_grid = _eval_slices(fit, k_grid)
+        derivs = _slice_derivs(fit, k_grid)
+    with span("iv.surface.diagnostics"):
+        g = _slice_g(fit, k_grid, w_grid, derivs)
+        del derivs      # w' and w'' are not held through the rest of the call
+        iv_grid = torch.sqrt(w_grid.clamp_min(0.0)
+                             / fit.expiries[..., None].clamp_min(1e-12))
+        butterfly_ok, calendar_ok = arbitrage_flags(w_grid, g)
+    with span("iv.surface.fit_rmse"):
+        w_obs = iv * iv * expiries[..., None]
+        err2 = (_eval_slices(fit, k) - w_obs) ** 2
+        if quote_mask is not None:
+            m_ = quote_mask.to(err2.dtype)
+            fit_rmse = torch.sqrt((err2 * m_).sum(dim=(-2, -1))
+                                  / m_.sum(dim=(-2, -1)).clamp_min(1.0))
+        else:
+            fit_rmse = torch.sqrt(err2.mean(dim=(-2, -1)))
     return {
         "fit": fit,
         "k_grid": k_grid,
