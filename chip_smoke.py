@@ -189,6 +189,7 @@ a directory without the package. Imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
 import os
 import shutil
 import signal
@@ -809,6 +810,123 @@ def stream_agg_cases(agg, dtype=torch.float32) -> dict:
     return {"max_abs_err": worst, **rows[0], "shapes": rows}
 
 
+# -- phase 2 (c): the spline evaluation kernel --------------------------------
+
+# Its callers' shapes (name: slices' batch, n, m, dtype, results, queries):
+# the surface step's grid (w, w', w'' on the common support, read at stride
+# 0 over the 30 expiries) and its quotes (w at the knots themselves), the
+# same grid in float64 (parity mode, the bench's parity stage), eval_surface's
+# one-point slices (1,024 surfaces x 256 queries), and the 30-day cubic
+# batch's resampling (768 series of 721 hourly knots, n=719 as B1's, on one
+# timeline shared by the batch) in float32 and float64.
+SPLINE_CASES = (("surface grid", (32768, 30), 50, 50, F32, (0, 1, 2), "grid"),
+                ("surface quotes", (32768, 30), 50, 50, F32, (0,), "knots"),
+                ("parity grid", (32768, 30), 50, 50, F64, (0, 1, 2), "grid"),
+                ("eval_surface", (1024, 256), 50, 1, F32, (0,), "points"),
+                ("30-day timeline", (768,), 719, 721, F32, (0,), "timeline"),
+                ("30-day timeline", (768,), 719, 721, F64, (0,), "timeline"))
+# kernel against its plain version: ulps of each slice's size in a result
+# (tests/test_torch_spline_eval.py ULPS and _ulps: the same operations in
+# the same order; PyTorch's card kernels divide by the scalar 6 as a
+# product with a rounded 1/6, an ulp in that term and one in the sum)
+SPLINE_ULPS = 4.0
+
+
+def spline_ulps(got, ref, r, x, y, M) -> float:
+    """Largest |got - ref| of result r (0: S, 1: S', 2: S'') on each slice
+    in ulps of the slice's size there: its largest |value|, and at least
+    its knots' size in that order (|y|, the secant slopes, |M|)."""
+    knots = (y.abs(), (torch.diff(y, dim=-1) / torch.diff(x, dim=-1)).abs(), M.abs())[r]
+    size = torch.maximum(ref.abs().amax(dim=-1, keepdim=True),
+                         knots.amax(dim=-1, keepdim=True).to(ref.device))
+    size = size.clamp_min(torch.finfo(ref.dtype).tiny)
+    return float(((got - ref).abs() / size).max()) / torch.finfo(ref.dtype).eps
+
+
+def spline_inputs(batch, n, m, dtype, queries, gen):
+    """Sorted jittered knots, smile-like values, curvatures and the query
+    view of one SPLINE_CASES row, on the card."""
+    u = lambda *shape: torch.rand(*shape, device=DEV, generator=gen, dtype=F64)
+    base = torch.linspace(-1.0, 1.0, n, device=DEV, dtype=F64)
+    x = base + (0.4 / n) * u(*batch, n)
+    y = 0.04 + 0.05 * x * x + 1e-3 * u(*batch, n)
+    M = 0.1 + torch.randn(*batch, n, device=DEV, generator=gen, dtype=F64)
+    if queries == "timeline":
+        x = (x + 1.0) * 360.0
+    x, y, M = (a.to(dtype) for a in (x, y, M))
+    if queries == "grid":
+        row = torch.linspace(-1.1, 1.1, m, device=DEV, dtype=F64)[None] + 0.01 * u(batch[0], 1)
+        t = row.to(dtype)[:, None, :].expand(*batch, m)
+    elif queries == "knots":
+        t = x
+    elif queries == "points":
+        t = (2.4 * u(*batch) - 1.2).to(dtype)[..., None]
+    else:
+        t = torch.arange(m, device=DEV, dtype=dtype).expand(*batch, m)
+    return x, y, M, t
+
+
+def spline_bytes(x, t, outputs: int) -> int:
+    """Least bytes of one evaluation: the knots read once, each distinct
+    query once (none where the queries are the knots), each result
+    written once."""
+    distinct = math.prod(size for size, stride in zip(t.shape, t.stride()) if stride)
+    queries = 0 if t.data_ptr() == x.data_ptr() else distinct
+    return (3 * x.numel() + queries + outputs * x[..., :1].numel() * t.shape[-1]) * x.element_size()
+
+
+def spline_eval_cases(se) -> dict:
+    """The evaluation kernel against its plain version at every
+    SPLINE_CASES row (within SPLINE_ULPS of each slice's size, also
+    against the plain version on CPU tensors for the first 64 slices,
+    and each result alone equal to the three together), counted on its
+    planned route, then timed beside the plain version and the bound.
+    Operations: 37 a query for all three results (3 shared, 4 for a and b,
+    14 for S, 12 for S', 4 for S''), 21 for S alone."""
+    gen = torch.Generator(device=DEV).manual_seed(19)
+    rows, worst = [], {"float32": 0.0, "float64": 0.0}
+    for what, batch, n, m, dtype, results, queries in SPLINE_CASES:
+        x, y, M, t = spline_inputs(batch, n, m, dtype, queries, gen)
+        plan = se.spline_eval_plan(n, m, dtype, math.prod(batch))
+        routes = dict(se.spline_eval_cuda.launches_by_route)
+        got = se.spline_eval_cuda(x, y, M, t, results)
+        torch.cuda.synchronize()
+        check(se.spline_eval_cuda.launches_by_route[plan.route] == routes[plan.route] + 1,
+              f"spline evaluation {what} counted on its route {plan.route}")
+        plain = se.spline_eval_plain(x, y, M, t, results)
+        cut = [a[:64] for a in (x, y, M)] + [t[:64]]
+        on_cpu = se.spline_eval_plain(*(a.cpu() for a in cut), results)
+        err = {"card": 0.0, "cpu": 0.0}
+        for r, g, p, c in zip(results, got, plain, on_cpu):
+            err["card"] = max(err["card"], spline_ulps(g, p, r, x, y, M))
+            err["cpu"] = max(err["cpu"], spline_ulps(g[:64].cpu(), c, r, *cut[:3]))
+            check(bool(torch.isfinite(g).all()), f"spline evaluation {what}: result {r} finite")
+        for r, g in zip(results, got):
+            (alone,) = se.spline_eval_cuda(x, y, M, t, (r,))
+            check(torch.equal(alone, g), f"spline evaluation {what}: result {r} alone")
+        key = str(dtype)[6:]
+        worst[key] = max(worst[key], *err.values())
+        check(max(err.values()) <= SPLINE_ULPS, f"spline evaluation {what} {key}: {err} ulps "
+              f"of each slice's size against the plain version on the card and on CPU "
+              f"tensors (bound {SPLINE_ULPS})")
+        kernel = lambda: se.spline_eval_cuda(x, y, M, t, results)
+        plain_fn = lambda: se.spline_eval_plain(x, y, M, t, results)
+        turns = [device_ms(f, 20, CALLS) for f in (kernel, plain_fn, plain_fn, kernel)]
+        ops = (37 if len(results) == 3 else 21) * x[..., :1].numel() * m
+        rows.append(timing_row(
+            f"spline eval {what} slices={math.prod(batch)} n={n} m={m} results={len(results)} {key}",
+            (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2,
+            spline_bytes(x, t, len(results)), ops, None,
+            ops_s=F32_OPS_S if dtype == F32 else F64_OPS_S, route=plan.route,
+            slices_a_block=plan.slices, turns=[round(v, 5) for v in turns],
+            ms_one_call_a_graph=device_ms(kernel, 20),
+            max_ulps_plain_card=round(err["card"], 3), max_ulps_plain_cpu=round(err["cpu"], 3)))
+        del x, y, M, t, got, plain
+        torch.cuda.empty_cache()
+    log(f"  spline evaluation: worst {worst} ulps of each slice's size (bound {SPLINE_ULPS})")
+    return {"max_ulps": worst, **{k: v for k, v in rows[0].items()}, "shapes": rows}
+
+
 # -- phase 3: the surface step ------------------------------------------------
 
 def surface_inputs():
@@ -834,7 +952,7 @@ def surface_digests(out: dict) -> dict:
                                               "butterfly_ok", "calendar_ok")}
 
 
-def surface_step(surface, tridiag) -> dict:
+def surface_step(surface, tridiag, se) -> dict:
     from scipy.interpolate import CubicSpline
 
     B, E, N, M = (SURFACE[x] for x in "BENM")
@@ -846,10 +964,13 @@ def surface_step(surface, tridiag) -> dict:
                                         spline_bc="not-a-knot")
 
     before = tridiag.tridiag_solve_cuda.launches
+    evals = se.spline_eval_cuda.launches
     out = step(iv_clean)
     torch.cuda.synchronize()
     check(tridiag.tridiag_solve_cuda.launches > before,
           "the surface step launched the Thomas kernel")
+    check(se.spline_eval_cuda.launches == evals + 2,
+          "the surface step launched the spline evaluation twice (grid, quotes)")
     w = out["w_grid"]
     check(tuple(w.shape) == (B, E, M) and w.dtype == torch.float32, "w_grid shape")
     check(bool(torch.isfinite(w).all() and torch.isfinite(out["g"]).all()),
@@ -4620,6 +4741,7 @@ def main(argv=()) -> int:
         return 1
     # the package lives beside this script; outside a checkout this fails
     from iv_interpolation_tpu_torch import _build
+    from iv_interpolation_tpu_torch.ops.cuda import spline_eval as se
     from iv_interpolation_tpu_torch.ops.cuda import stream_agg as agg
     from iv_interpolation_tpu_torch.ops.cuda import tridiag
     from iv_interpolation_tpu_torch.ops import segment_ohlcv
@@ -4660,20 +4782,25 @@ def main(argv=()) -> int:
 
     # each main path runs with the launch counts set to 0 just before it
     # and read just after it; each read also keeps B1's launches by route
-    # since the last reset, under the phase it ran in
+    # and the spline evaluation's launches by dtype since the last reset,
+    # under the phase it ran in
     route_reads, phase_now = [], ["phases 3-4"]
 
     def reset_counts():
-        route_reads.append([phase_now[0], None])
+        route_reads.append([phase_now[0], None, None])
         tridiag.tridiag_solve_cuda.launches = 0
         tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
         tridiag.tridiag_solve_cuda.launches_by_route.update(dict.fromkeys(tridiag.ROUTES, 0))
         agg.aggregate_ohlcv_cuda.launches = 0
         agg.aggregate_ohlcv_cuda.launches_by_dtype.update(float32=0, float64=0)
+        se.spline_eval_cuda.launches = 0
+        se.spline_eval_cuda.launches_by_dtype.update(float32=0, float64=0)
+        se.spline_eval_cuda.launches_by_route.update(dict.fromkeys(se.ROUTES, 0))
 
     def read_routes():
         if route_reads:
             route_reads[-1][1] = dict(tridiag.tridiag_solve_cuda.launches_by_route)
+            route_reads[-1][2] = dict(se.spline_eval_cuda.launches_by_dtype)
 
     def read_counts():
         read_routes()
@@ -4695,11 +4822,12 @@ def main(argv=()) -> int:
         b1 = tridiag_cases(tridiag, lib)
         b2 = stream_agg_cases(agg)
         b2_f64 = stream_agg_cases(agg, torch.float64)
+        spl = spline_eval_cases(se)
         done(2)
     reset_counts()
     if want(3):
         log("phase 3: surface step")
-        surf = surface_step(surface, tridiag)
+        surf = surface_step(surface, tridiag, se)
     if want(4):
         log("phase 4: streaming refit")
         stream = streaming_session(svc, agg)
@@ -4857,6 +4985,14 @@ def main(argv=()) -> int:
         + f"; all phases done at {time.perf_counter() - t_start:.1f} s")
     b2["max_abs_err"] = max(b2["max_abs_err"], checks["b2_err"])
 
+    # the spline evaluation's launches by phase, both dtypes, over every
+    # path of this process (phases 12 and 14 run theirs in processes of
+    # their own but for phase 14's entry point)
+    spline_by_phase = {}
+    for phase, _, by_dtype in route_reads:
+        for dtype, k in (by_dtype or {}).items():
+            by = spline_by_phase.setdefault(phase, {"float32": 0, "float64": 0})
+            by[dtype] += k
     # launches on each main path, by kernel (phases 3-6 solve in float32;
     # B2 runs in float64 on phase 6's float64 pipeline only)
     paths = {
@@ -4897,7 +5033,19 @@ def main(argv=()) -> int:
             "quickstart float64 (phase 13)": library["quick"]["launches"]["float64"]["b2"],
             "bench streaming (phase 14)": benched["launches"]["streaming"]["b2"]},
         "stream_agg_f64": {"float64 pipeline (phase 6)": host["b2_f64_launches"]},
+        "spline_eval": {phase: sum(by.values()) for phase, by in spline_by_phase.items()},
     }
+    # every CUDA spline evaluation launches the kernel: the surface step,
+    # the 30-day cubic batch and runner (cubic_resample), the surface
+    # task's cubic, smoothing and parity (float64) runs, the quickstart and
+    # the top-level fit_eval_surface, the bench's entry point
+    spline_wanted = ("phases 3-4", "phase 5", "phase 6", "phase 7", "phase 13", "phase 14")
+    check(all(spline_by_phase.get(ph, {}).get("float32", 0) > 0 for ph in spline_wanted)
+          and all(spline_by_phase.get(ph, {}).get("float64", 0) > 0
+                  for ph in ("phase 5", "phase 6", "phase 7", "phase 13")),
+          f"the spline evaluation kernel ran in float32 on the paths of {spline_wanted}, and in "
+          f"float64 on the 30-day float64 batch and runner, the parity surface task and the "
+          f"float64 quickstart: {spline_by_phase}")
     check(all(n > 0 for n in paths["tridiag_thomas_f64"].values())
           and paths["tridiag_thomas_f32"]["surface task (phase 7)"] > 0
           and paths["tridiag_thomas_f32"]["AH fit_eval + eval_ah (phase 10)"] > 0
@@ -4928,9 +5076,12 @@ def main(argv=()) -> int:
     # per kernel: the numbers of its first main-path shape (B1 float32 the
     # surface step, B1 float64 the 30-day cubic batch, B2 the candle
     # stage), and every main-path shape under "shapes"
+    spline_src = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/spline_eval.cu",
+                      replaces="none (the JAX package leaves the evaluation to XLA)")
     results = {"tridiag_thomas_f32": (thomas, b1["float32"]),
                "tridiag_thomas_f64": (thomas, b1["float64"]),
-               "stream_agg": (agg_src, b2), "stream_agg_f64": (agg_src, b2_f64)}
+               "stream_agg": (agg_src, b2), "stream_agg_f64": (agg_src, b2_f64),
+               "spline_eval": (spline_src, spl)}
     kernels = [{"name": name, "launches": sum(paths[name].values()), "paths": paths[name],
                 **rows, **source} for name, (source, rows) in results.items()]
     # B1's launches by route on the paths that read them by dtype, and on
@@ -4943,7 +5094,7 @@ def main(argv=()) -> int:
     # its batch.
     ah64 = ah_res["b1_f64_by_batch"]
     by_phase = {}
-    for phase, routes in route_reads:
+    for phase, routes, _ in route_reads:
         for route, k in (routes or {}).items():
             if k:
                 by = by_phase.setdefault(phase, dict.fromkeys(tridiag.ROUTES, 0))
@@ -4953,6 +5104,7 @@ def main(argv=()) -> int:
                (SUB_N, 48, "float32"): runner30["float32"]["shapes"].get((SUB_N, 48), 0),
                (257, 512, "float64"): ah64.get(("float64", AH["cpu"]), 0),
                (257, 8192, "float64"): ah64.get(("float64", AH["cpu"] * AH["m"]), 0)}
+    kernels[-1]["launches_by_dtype"] = spline_by_phase
     for entry, dtype in zip(kernels, ("float32", "float64")):
         for row in entry["shapes"]:
             n, batch = (int(row["shape"].split(f"{k}=")[1].split()[0]) for k in ("n", "batch"))

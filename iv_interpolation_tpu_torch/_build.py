@@ -147,6 +147,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         "ivt_stream_agg_i64": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
         "ivt_stream_agg_i32_f64": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
         "ivt_stream_agg_i64_f64": [p] * 14 + [i, i, i, ll, ll, i, i, i, p],
+        # x, y, M, t, S, S', S'', slices, n, m, inner, t_outer, t_inner,
+        # t_query, slices a block, queries a block, staged, stream
+        "ivt_spline_eval_f32": [p] * 7 + [ll, i, i, ll, ll, ll, ll, i, i, i, p],
+        "ivt_spline_eval_f64": [p] * 7 + [ll, i, i, ll, ll, ll, ll, i, i, i, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -24,6 +24,7 @@ from iv_interpolation_tpu_torch.models._slicewise import slicewise_local_vol, sl
 from iv_interpolation_tpu_torch.models.base import SurfaceModel
 from iv_interpolation_tpu_torch.ops.cubic_spline import (  # noqa: F401  (public math)
     eval_cubic_spline,
+    eval_cubic_spline_all,
     eval_cubic_spline_deriv,
     eval_cubic_spline_second_deriv,
     fit_cubic_spline,
@@ -74,11 +75,10 @@ def fit_eval_surface_parity(k: torch.Tensor, iv: torch.Tensor, expiries: torch.T
     M = fit_cubic_spline(k64, w64, bc_type=bc_type)
     q = parity_grid(k, n_grid)
     knots = (k64, w64, M)
-    w_q = eval_cubic_spline(*knots, q)
+    w_q, dw, d2w = eval_cubic_spline_all(*knots, q)
     w_grid = w_q.float()
     k_grid = q.float()
-    g = butterfly_g(k_grid, w_grid, eval_cubic_spline_deriv(*knots, q).float(),
-                    eval_cubic_spline_second_deriv(*knots, q).float())
+    g = butterfly_g(k_grid, w_grid, dw.float(), d2w.float())
     butterfly_ok, calendar_ok = arbitrage_flags(w_grid, g)
     return {
         "k_grid": k_grid,

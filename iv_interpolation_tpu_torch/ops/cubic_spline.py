@@ -13,9 +13,12 @@ Boundary conditions, as in SciPy's ``CubicSpline``:
 
 from __future__ import annotations
 
+from functools import reduce
+
 import torch
 
 from iv_interpolation_tpu_torch.monitoring.metrics import span
+from iv_interpolation_tpu_torch.ops.cuda.spline_eval import spline_eval_cuda
 from iv_interpolation_tpu_torch.ops.tridiag import tridiag_solve_batch_last
 
 
@@ -117,17 +120,36 @@ def _bracket(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         return ge.clamp(0, n - 2)
 
 
-def _gather_knots(idx: torch.Tensor, *arrays: torch.Tensor):
-    batch = idx.shape[:-1]
-    return [torch.gather(a.expand(*batch, a.shape[-1]), -1, idx) for a in arrays]
+def _evaluate(x, y, M, t, results):
+    """The ``results`` (0: S, 1: S', 2: S'') of one evaluation, with x, y,
+    M broadcast to one shape and all four promoted to their common dtype,
+    as mixed float32 and float64 operands promote in the JAX package."""
+    dtype = reduce(torch.promote_types, (a.dtype for a in (x, y, M, t)))
+    x, y, M = torch.broadcast_tensors(*(a.to(dtype) for a in (x, y, M)))
+    return spline_eval_cuda(x, y, M, t.to(dtype), results)
 
 
-def _interval(x, y, M, t):
-    """Per query: the bracketing interval's x0, x1, y0, y1, M0, M1."""
-    idx = _bracket(x, t)
-    x0, y0, M0 = _gather_knots(idx, x, y, M)
-    x1, y1, M1 = _gather_knots(idx + 1, x, y, M)
-    return x0, x1, y0, y1, M0, M1
+def eval_cubic_spline_all(x: torch.Tensor, y: torch.Tensor, M: torch.Tensor,
+                          t: torch.Tensor, order: int = 2):
+    """S(t) of fitted splines and, up to ``order``, S'(t) and S''(t), from
+    one bracket search and one read of the knots.
+
+    Args:
+      x, y, M: knots / values / second derivatives, shape ``(..., n)``,
+        broadcastable against each other.
+      t: query points, shape ``(..., m)`` with batch dims that broadcast
+        against the knots'.
+      order: 0 returns S; 1 returns (S, S'); 2 returns (S, S', S'').
+
+    Each result has shape ``(..., m)``. Points outside [x0, xn] are
+    extrapolated with the boundary cubic (SciPy ``extrapolate=True``).
+    CUDA tensors launch one kernel (``ops.cuda.spline_eval``), CPU tensors
+    run its plain version, in the common dtype of x, y, M and t.
+    """
+    if order not in (0, 1, 2):
+        raise ValueError(f"order must be 0, 1 or 2, got {order!r}")
+    out = _evaluate(x, y, M, t, tuple(range(order + 1)))
+    return out[0] if order == 0 else out
 
 
 def eval_cubic_spline(x: torch.Tensor, y: torch.Tensor, M: torch.Tensor,
@@ -141,34 +163,20 @@ def eval_cubic_spline(x: torch.Tensor, y: torch.Tensor, M: torch.Tensor,
     Returns S(t), shape ``(..., m)``. Points outside [x0, xn] are
     extrapolated with the boundary cubic (SciPy ``extrapolate=True``).
     """
-    x, y, M = torch.broadcast_tensors(x, y, M)
-    x0, x1, y0, y1, M0, M1 = _interval(x, y, M, t)
-    hh = x1 - x0
-    a = (x1 - t) / hh
-    b = (t - x0) / hh
-    return (a * y0 + b * y1
-            + ((a * a * a - a) * M0 + (b * b * b - b) * M1) * (hh * hh) / 6.0)
+    return eval_cubic_spline_all(x, y, M, t, order=0)
 
 
 def eval_cubic_spline_deriv(x, y, M, t):
     """First derivative S'(t) of the fitted spline."""
-    x, y, M = torch.broadcast_tensors(x, y, M)
-    x0, x1, y0, y1, M0, M1 = _interval(x, y, M, t)
-    hh = x1 - x0
-    a = (x1 - t) / hh
-    b = (t - x0) / hh
-    return ((y1 - y0) / hh
-            + ((-3 * (a * a) + 1) * M0 + (3 * (b * b) - 1) * M1) * hh / 6.0)
+    (dS,) = _evaluate(x, y, M, t, (1,))
+    return dS
 
 
 def eval_cubic_spline_second_deriv(x, y, M, t):
     """Second derivative S''(t): linear between the knot curvatures."""
-    x, M = torch.broadcast_tensors(x, M)
-    idx = _bracket(x, t)
-    x0, M0 = _gather_knots(idx, x, M)
-    x1, M1 = _gather_knots(idx + 1, x, M)
-    hh = x1 - x0
-    return ((x1 - t) * M0 + (t - x0) * M1) / hh
+    del y                                 # S'' reads x and M only
+    (d2S,) = _evaluate(x, M, M, t, (2,))
+    return d2S
 
 
 def fit_eval_smile(x, y, t, bc_type: str = "natural"):

@@ -28,11 +28,7 @@ from typing import NamedTuple
 
 import torch
 
-from iv_interpolation_tpu_torch.ops.cubic_spline import (
-    eval_cubic_spline,
-    eval_cubic_spline_deriv,
-    eval_cubic_spline_second_deriv,
-)
+from iv_interpolation_tpu_torch.ops.cubic_spline import eval_cubic_spline, eval_cubic_spline_all
 
 
 class SmoothingFit(NamedTuple):
@@ -83,9 +79,7 @@ def eval_smoothing_spline(fit: SmoothingFit, t: torch.Tensor) -> torch.Tensor:
 
 def eval_smoothing_spline_derivs(fit: SmoothingFit, t: torch.Tensor):
     """(S, S', S'') at (..., q) query points, for butterfly-g diagnostics."""
-    return (eval_cubic_spline(fit.x, fit.g, fit.M, t),
-            eval_cubic_spline_deriv(fit.x, fit.g, fit.M, t),
-            eval_cubic_spline_second_deriv(fit.x, fit.g, fit.M, t))
+    return eval_cubic_spline_all(fit.x, fit.g, fit.M, t)
 
 
 def fit_eval_smoothed_smile(k: torch.Tensor, w: torch.Tensor, lam,

@@ -22,8 +22,7 @@ import torch
 from iv_interpolation_tpu_torch.monitoring.metrics import span
 from iv_interpolation_tpu_torch.ops.cubic_spline import (
     eval_cubic_spline,
-    eval_cubic_spline_deriv,
-    eval_cubic_spline_second_deriv,
+    eval_cubic_spline_all,
     fit_cubic_spline,
 )
 from iv_interpolation_tpu_torch.ops.essvi import essvi_g, essvi_w, fit_essvi_batched
@@ -166,36 +165,34 @@ def common_support_grid(k: torch.Tensor, n_grid: int) -> torch.Tensor:
     return span[..., None, :].expand(*k.shape[:-1], n_grid)
 
 
-def _eval_slices(fit: SurfaceFit, k_grid: torch.Tensor) -> torch.Tensor:
-    """Evaluate every fitted slice at (B, E, m) query log-moneyness."""
+def _eval_slices(fit: SurfaceFit, k_grid: torch.Tensor, derivs: bool = False):
+    """Evaluate every fitted slice at (B, E, m) query log-moneyness: w, or
+    with ``derivs`` the pair (w, (w', w'')) for the splines, whose
+    derivatives come from the same launch, and (w, None) for the
+    calibrated families, whose g needs no evaluated derivatives."""
     if fit.method in _SPLINE_METHODS:
+        if derivs:
+            w, dw, d2w = eval_cubic_spline_all(fit.k, fit.w, fit.coefs, k_grid, order=2)
+            return w, (dw, d2w)
         return eval_cubic_spline(fit.k, fit.w, fit.coefs, k_grid)
     if fit.method == "sabr":
         iv = sabr_vol(fit.coefs, torch.ones_like(fit.expiries),
                       torch.exp(k_grid), fit.expiries)
-        return iv * iv * fit.expiries[..., None]
-    if fit.method == "essvi":
-        return essvi_w(fit.coefs, k_grid)
-    if fit.method == "svi":
-        return svi_total_variance(fit.coefs, k_grid)
-    raise ValueError(f"unknown smile method: {fit.method!r}")
-
-
-def _slice_derivs(fit: SurfaceFit, k_grid: torch.Tensor):
-    """(w', w'') of the spline slices at (B, E, m) query log-moneyness;
-    None for the calibrated families, whose g needs no evaluated
-    derivatives."""
-    if fit.method not in _SPLINE_METHODS:
-        return None
-    knots = (fit.k, fit.w, fit.coefs)
-    return (eval_cubic_spline_deriv(*knots, k_grid),
-            eval_cubic_spline_second_deriv(*knots, k_grid))
+        w = iv * iv * fit.expiries[..., None]
+    elif fit.method == "essvi":
+        w = essvi_w(fit.coefs, k_grid)
+    elif fit.method == "svi":
+        w = svi_total_variance(fit.coefs, k_grid)
+    else:
+        raise ValueError(f"unknown smile method: {fit.method!r}")
+    return (w, None) if derivs else w
 
 
 def _slice_g(fit: SurfaceFit, k_grid: torch.Tensor, w_grid: torch.Tensor,
              derivs) -> torch.Tensor:
     """Butterfly g on the evaluated slices, closed-form where available;
-    ``derivs`` is :func:`_slice_derivs`' result on the same grid."""
+    ``derivs`` is the second of :func:`_eval_slices`' pair on the same
+    grid."""
     if fit.method in _SPLINE_METHODS:
         return butterfly_g(k_grid, w_grid, *derivs)
     if fit.method == "svi":
@@ -276,8 +273,7 @@ def fit_eval_surface(k: torch.Tensor, iv: torch.Tensor, expiries: torch.Tensor,
     with span("iv.surface.grid"):
         k_grid = common_support_grid(k, n_grid)
     with span("iv.surface.eval"):
-        w_grid = _eval_slices(fit, k_grid)
-        derivs = _slice_derivs(fit, k_grid)
+        w_grid, derivs = _eval_slices(fit, k_grid, derivs=True)
     with span("iv.surface.diagnostics"):
         g = _slice_g(fit, k_grid, w_grid, derivs)
         del derivs      # w' and w'' are not held through the rest of the call

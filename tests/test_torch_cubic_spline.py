@@ -70,6 +70,31 @@ def test_fit_and_eval_match_jax(rng, n, bc, dtype):
         _close(p_fn(*args).numpy(), np.asarray(j_fn(*jargs)), dtype)
 
 
+@pytest.mark.parametrize("knots,queries", [(np.float32, np.float64),
+                                            (np.float64, np.float32)])
+def test_mixed_dtypes_promote_as_in_jax(rng, knots, queries):
+    """float32 knots with float64 queries, or the reverse, evaluate in
+    float64 as the JAX package's promotion does; the float32 operand's
+    rounding bounds the gap."""
+    B, n, m = 5, 12, 31
+    x, y = _smiles(rng, B, n, knots)
+    M = np.array(ref.fit_cubic_spline(jnp.asarray(x), jnp.asarray(y),
+                                      bc_type="not-a-knot"))
+    t = _queries(rng, x, m).astype(queries)
+    args = [torch.from_numpy(a) for a in (x, y, M, t)]
+    jargs = [jnp.asarray(a) for a in (x, y, M, t)]
+    got_all = port.eval_cubic_spline_all(*args)
+    for i, (p_fn, j_fn) in enumerate(
+            ((port.eval_cubic_spline, ref.eval_cubic_spline),
+             (port.eval_cubic_spline_deriv, ref.eval_cubic_spline_deriv),
+             (port.eval_cubic_spline_second_deriv, ref.eval_cubic_spline_second_deriv))):
+        want = np.asarray(j_fn(*jargs))
+        got = p_fn(*args)
+        assert got.dtype == torch.float64 and want.dtype == np.float64
+        assert torch.equal(got, got_all[i])
+        _close(got.numpy(), want, np.float32)
+
+
 @pytest.mark.parametrize("bc", ["natural", "not-a-knot"])
 def test_matches_scipy(rng, bc):
     B, n, m = 4, 15, 40

@@ -3,9 +3,9 @@
 A span is a ``torch.profiler.record_function`` only while a profiler
 records; otherwise one shared no-op. Under ``profile_trace`` the Chrome
 trace holds the stages of ``fit_eval_surface`` (``iv.surface.fit``,
-``.grid``, ``.eval``, ``.diagnostics``, ``.fit_rmse``), its four bracket
-searches and its one B1 solve, and ``fit_eval_surface_grid``'s
-contraction and diagnostics; outputs are bit-equal with and without
+``.grid``, ``.eval``, ``.diagnostics``, ``.fit_rmse``), its two spline
+evaluations (each with its bracket search) and its one B1 solve, and
+``fit_eval_surface_grid``'s contraction and diagnostics; outputs are bit-equal with and without
 them. CPU tensors, CPU activity only.
 """
 
@@ -101,18 +101,27 @@ def test_fit_eval_surface_trace_holds_each_stage_once(tmp_path, dtype):
         fit_eval_surface(k, iv, T, n_grid=11, spline_bc="not-a-knot")
     spans = _spans(tmp_path)
     counts = Counter(name for name, _, _ in spans)
-    b1 = f"iv.tridiag.b1[plain n={n - 2} batch={B * E} {str(dtype)[6:]}]"
-    assert counts == Counter({**dict.fromkeys(STAGES, 1), "iv.spline.bracket": 4, b1: 1})
+    kind = str(dtype)[6:]
+    b1 = f"iv.tridiag.b1[plain n={n - 2} batch={B * E} {kind}]"
+    on_grid = f"iv.spline.eval[plain n={n} m=11 slices={B * E} {kind}]"
+    at_quotes = f"iv.spline.eval[plain n={n} m={n} slices={B * E} {kind}]"
+    assert counts == Counter({**dict.fromkeys(STAGES, 1), "iv.spline.bracket": 2, b1: 1,
+                              on_grid: 1, at_quotes: 1})
     stage = {s[0]: s for s in spans if s[0] in STAGES}
     # the stages follow one another without overlap, in the call's order
     order = [stage[name] for name in STAGES]
     assert all(a[2] <= b[1] for a, b in zip(order, order[1:]))
-    # B1 under the fit; three brackets under the evaluation, one under fit_rmse
+    # B1 under the fit; one evaluation (w, w', w'') with its bracket under
+    # the evaluation stage, one (w at the quotes) under fit_rmse
     (solve,) = [s for s in spans if s[0] == b1]
     assert _inside(solve, stage["iv.surface.fit"])
+    (grid_eval,) = [s for s in spans if s[0] == on_grid]
+    (quote_eval,) = [s for s in spans if s[0] == at_quotes]
+    assert _inside(grid_eval, stage["iv.surface.eval"])
+    assert _inside(quote_eval, stage["iv.surface.fit_rmse"])
     brackets = [s for s in spans if s[0] == "iv.spline.bracket"]
-    assert sum(_inside(s, stage["iv.surface.eval"]) for s in brackets) == 3
-    assert sum(_inside(s, stage["iv.surface.fit_rmse"]) for s in brackets) == 1
+    assert sum(_inside(s, grid_eval) for s in brackets) == 1
+    assert sum(_inside(s, quote_eval) for s in brackets) == 1
 
 
 def test_fit_eval_surface_grid_trace_holds_contraction_and_diagnostics(tmp_path):

@@ -195,7 +195,7 @@ def test_eval_paths_on_the_reference_fit_carried_across(rng, method, dtype):
     w_ref = ref._eval_slices(fit_ref, jnp.asarray(k_grid))
     close(w_grid, w_ref)
     close(port._slice_g(fit, tg, torch.from_numpy(np.asarray(w_ref)),
-                        port._slice_derivs(fit, tg)),
+                        port._eval_slices(fit, tg, derivs=True)[1]),
           ref._slice_g(fit_ref, jnp.asarray(k_grid), w_ref))
     B, Q = k.shape[0], 40
     k_q = rng.uniform(-0.45, 0.45, (B, Q)).astype(dtype)
