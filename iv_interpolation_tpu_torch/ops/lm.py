@@ -23,6 +23,12 @@ Built for SVI smile calibration (5 parameters x thousands of slices, see
 
 The products stay in the inputs' dtype; on the card TF32 is held off by
 ``_build.pin_precision``.
+
+Each iteration opens four spans (``monitoring.metrics.span``):
+``iv.lm.linearize`` (residuals and Jacobian), ``iv.lm.normal`` (gradient,
+``J^T J`` and damping), ``iv.lm.solve`` (:func:`solve_spd`) and
+``iv.lm.step`` (projection, trial cost, acceptance and the convergence
+tests).
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from typing import Callable, NamedTuple
 
 import torch
 from torch.func import jacfwd, vmap
+
+from iv_interpolation_tpu_torch.monitoring.metrics import span
 
 
 class LMResult(NamedTuple):
@@ -89,6 +97,11 @@ def levenberg_marquardt_batched(residual_fn: Callable, params0: torch.Tensor, *a
       linearize: optional batched (B, P) params, *args -> ((B, M)
         residuals, (B, M, P) Jacobian), used in place of mapping
         ``jacfwd`` over ``residual_fn``.
+
+    Host counters, read by nothing in the loop:
+    ``levenberg_marquardt_batched.calls`` (calls), ``.iterations``
+    (iterations of every call) and ``.problems`` (problems summed over
+    those iterations: B a call's iteration).
     """
     dtype, device = params0.dtype, params0.device
     lo = None if lower is None else torch.as_tensor(lower, device=device).to(dtype)
@@ -111,35 +124,48 @@ def levenberg_marquardt_batched(residual_fn: Callable, params0: torch.Tensor, *a
         return 0.5 * (r * r).sum(dim=-1)
 
     B = params0.shape[0]
+    levenberg_marquardt_batched.calls += 1
+    levenberg_marquardt_batched.iterations += max_iters
+    levenberg_marquardt_batched.problems += B * max_iters
     p = clip(params0)
     state = (p, torch.full((B,), lambda0, dtype=dtype, device=device), cost_of(p),
              torch.zeros((B,), dtype=torch.int32, device=device),
              torch.zeros((B,), dtype=torch.bool, device=device))
     for _ in range(max_iters):
         p, lam, cost = state[:3]
-        r, J = linearize(p, *args)                       # (B, M), (B, M, P)
-        g = torch.einsum("bmp,bm->bp", J, r)             # gradient
-        JtJ = torch.einsum("bmp,bmq->bpq", J, J)
-        diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)
-        # Marquardt scaling with a floor so flat directions stay regularised
-        damp = lam[:, None] * diag.clamp_min(1e-12)
-        delta = solve_spd(JtJ + torch.diag_embed(damp), -g)
-        p_new = clip(p + delta)
-        cost_new = cost_of(p_new)
-        accept = (cost_new < cost) & torch.isfinite(cost_new)
-        p_next, lam, cost_next, n_acc = lm_accept(state, p_new, cost_new, accept)
-        # small_step is gated on acceptance: a rejection streak drives
-        # lambda to its cap and the damped step towards zero, which must
-        # not latch converged at a non-optimum. small_grad tests the
-        # iterate the gradient was taken at and needs no gate.
-        small_step = accept & (delta.abs().amax(dim=-1)
-                               < tol * (1.0 + p_next.abs().amax(dim=-1)))
-        small_grad = g.abs().amax(dim=-1) < tol
-        small_impr = accept & (cost - cost_new < tol * cost.clamp_min(1.0))
-        state = (p_next, lam, cost_next, n_acc,
-                 state[4] | small_step | small_grad | small_impr)
+        with span("iv.lm.linearize"):
+            r, J = linearize(p, *args)                   # (B, M), (B, M, P)
+        with span("iv.lm.normal"):
+            g = torch.einsum("bmp,bm->bp", J, r)         # gradient
+            JtJ = torch.einsum("bmp,bmq->bpq", J, J)
+            diag = torch.diagonal(JtJ, dim1=-2, dim2=-1)
+            # Marquardt scaling with a floor so flat directions stay regularised
+            damp = lam[:, None] * diag.clamp_min(1e-12)
+            A = JtJ + torch.diag_embed(damp)
+        with span("iv.lm.solve"):
+            delta = solve_spd(A, -g)
+        with span("iv.lm.step"):
+            p_new = clip(p + delta)
+            cost_new = cost_of(p_new)
+            accept = (cost_new < cost) & torch.isfinite(cost_new)
+            p_next, lam, cost_next, n_acc = lm_accept(state, p_new, cost_new, accept)
+            # small_step is gated on acceptance: a rejection streak drives
+            # lambda to its cap and the damped step towards zero, which must
+            # not latch converged at a non-optimum. small_grad tests the
+            # iterate the gradient was taken at and needs no gate.
+            small_step = accept & (delta.abs().amax(dim=-1)
+                                   < tol * (1.0 + p_next.abs().amax(dim=-1)))
+            small_grad = g.abs().amax(dim=-1) < tol
+            small_impr = accept & (cost - cost_new < tol * cost.clamp_min(1.0))
+            state = (p_next, lam, cost_next, n_acc,
+                     state[4] | small_step | small_grad | small_impr)
     p, _, cost, n_acc, converged = state
     return LMResult(params=p, cost=cost, n_accepted=n_acc, converged=converged)
+
+
+levenberg_marquardt_batched.calls = 0
+levenberg_marquardt_batched.iterations = 0
+levenberg_marquardt_batched.problems = 0
 
 
 def levenberg_marquardt(residual_fn: Callable, params0: torch.Tensor, *args,

@@ -21,6 +21,7 @@ from functools import partial
 import numpy as np
 import torch
 
+from iv_interpolation_tpu_torch.monitoring.metrics import span
 from iv_interpolation_tpu_torch.ops.lm import (
     LMResult,
     levenberg_marquardt,
@@ -197,14 +198,16 @@ def fit_svi_batched(k: torch.Tensor, w: torch.Tensor,
     :func:`svi_init`. ``loss='huber'`` minimises the pseudo-Huber loss
     with scale ``huber_delta`` (in total-variance units) instead of least
     squares: bad quotes pull the fit with bounded force
-    (``ops.lm.robustify``).
+    (``ops.lm.robustify``). The start is computed inside span
+    ``iv.svi.init``.
     """
     if weights is None:
         weights = torch.ones_like(w)
     batch_shape = w.shape[:-1]
     n = w.shape[-1]
     kf, wf, wtf = (a.reshape(-1, n) for a in (k, w, weights))
-    p0 = svi_quasi_init(kf, wf) if init == "quasi" else svi_init(kf, wf)
+    with span("iv.svi.init"):
+        p0 = svi_quasi_init(kf, wf) if init == "quasi" else svi_init(kf, wf)
     residual = partial(_svi_residual, butterfly_penalty=butterfly_penalty)
     if loss == "huber":
         residual = robustify(residual, huber_delta)

@@ -4,9 +4,12 @@ A span is a ``torch.profiler.record_function`` only while a profiler
 records; otherwise one shared no-op. Under ``profile_trace`` the Chrome
 trace holds the stages of ``fit_eval_surface`` (``iv.surface.fit``,
 ``.grid``, ``.eval``, ``.diagnostics``, ``.fit_rmse``), its two spline
-evaluations (each with its bracket search) and its one B1 solve, and
-``fit_eval_surface_grid``'s contraction and diagnostics; outputs are bit-equal with and without
-them. CPU tensors, CPU activity only.
+evaluations (each with its bracket search) and its one B1 solve, the
+batched LM's four spans an iteration (``iv.lm.*``) and the SVI start's
+(``iv.svi.init``), and ``fit_eval_surface_grid``'s contraction and
+diagnostics; outputs are bit-equal with and without them. The LM's host
+counters advance by calls, iterations and problems. CPU tensors, CPU
+activity only.
 """
 
 import json
@@ -179,3 +182,55 @@ def test_step_leaves_its_span_in_the_trace(tmp_path):
     with steps.step("fused/L64"):                  # no profiler: the no-op
         assert metrics.span("x") is metrics.span("y")
     assert len(steps.steps) == 2
+
+
+LM_SPANS = ("iv.lm.linearize", "iv.lm.normal", "iv.lm.solve", "iv.lm.step")
+
+
+def test_svi_fit_holds_each_lm_span_once_an_iteration(tmp_path):
+    """The batched LM's four spans, one each an iteration in that order,
+    and the SVI start's span once before them, all inside the fit stage."""
+    k, iv, T = _smiles(2, 3, 9, torch.float64)
+    with profile_trace(str(tmp_path)):
+        fit_eval_surface(k, iv, T, method="svi", n_grid=11, svi_iters=3)
+    spans = _spans(tmp_path)
+    counts = Counter(name for name, _, _ in spans)
+    assert {name: counts[name] for name in LM_SPANS + ("iv.svi.init",)} == {
+        **dict.fromkeys(LM_SPANS, 3), "iv.svi.init": 1}
+    (fit,) = [s for s in spans if s[0] == "iv.surface.fit"]
+    inner = sorted((s for s in spans if s[0] in LM_SPANS + ("iv.svi.init",)),
+                   key=lambda s: s[1])
+    assert all(_inside(s, fit) for s in inner)
+    assert [s[0] for s in inner] == ["iv.svi.init"] + list(LM_SPANS) * 3
+    assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
+
+
+def test_lm_counters_advance_by_calls_iterations_and_problems():
+    from iv_interpolation_tpu_torch.ops.lm import levenberg_marquardt_batched as lm
+    B, E = 2, 3
+    k, iv, T = _smiles(B, E, 9, torch.float64)
+    before = (lm.calls, lm.iterations, lm.problems)
+    fit_eval_surface(k, iv, T, method="svi", n_grid=11, svi_iters=3)
+    after = (lm.calls, lm.iterations, lm.problems)
+    assert tuple(b - a for a, b in zip(before, after)) == (1, 3, 3 * B * E)
+
+
+def test_lm_spans_without_a_profiler_are_the_shared_no_op(monkeypatch):
+    made = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: made.append(name))
+    entered = []
+    real = metrics.span
+
+    def watching(name):
+        context = real(name)
+        entered.append(context)
+        return context
+
+    from iv_interpolation_tpu_torch.ops import lm, svi
+    monkeypatch.setattr(lm, "span", watching)
+    monkeypatch.setattr(svi, "span", watching)
+    k, iv, T = _smiles(2, 3, 9, torch.float64)
+    fit_eval_surface(k, iv, T, method="svi", n_grid=11, svi_iters=3)
+    assert made == []
+    assert len(entered) == 1 + 4 * 3
+    assert all(context is metrics.span("iv.x") for context in entered)
