@@ -77,7 +77,11 @@ Phases:
   9. the calibrated families at 1,024 surfaces x 30 expiries x 50 quotes,
      float32, noise 1e-4: (a) ``fit_svi_batched`` on the 30,720 slices
      (quasi init, 32 iterations; again with the butterfly hinge and with
-     the Huber loss), (b) ``fit_essvi_batched`` with the block solver, and
+     the Huber loss; the first runs the raw-SVI kernel, ``svi_lm.cu``,
+     which is held bit for bit to its plain version on the card and to the
+     generic loop at the same shape, then timed at 32,768 surfaces beside
+     its bound and the plain version), (b) ``fit_essvi_batched`` with the
+     block solver, and
      the dense solver on 256 surfaces, (c) ``fit_sabr_batched`` on 30,720
      slices, (d) ``fit_eval_surface`` for the three methods, (e)
      ``greek_surfaces`` on (d)'s grids; each held to the same call on CPU
@@ -2666,8 +2670,9 @@ def timed_fit(fit, iters: int, reps: int = 2) -> dict:
 def launches_a_fit(fit, iters: int):
     """Device launches of one fit, from ``torch.profiler``: kernels and
     memory operations counted on fits of 2 and 4 iterations, the difference
-    a launch count an iteration, extended to ``iters``. None where the
-    profiler records no device activity."""
+    a launch count an iteration (0 for a fit whose iterations run in one
+    kernel), extended to ``iters``. None where the profiler records no
+    device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     def count(n):
@@ -2680,7 +2685,7 @@ def launches_a_fit(fit, iters: int):
                    if str(getattr(ev, "device_type", "")).endswith("CUDA"))
 
     n2, n4 = count(2), count(4)
-    if n2 == 0 or n4 <= n2:
+    if n2 == 0 or n4 < n2:
         return None
     per_iter = (n4 - n2) / 2
     return {"an_iteration": per_iter, "a_fit": int(n2 + per_iter * (iters - 2))}
@@ -2709,11 +2714,118 @@ def recovery(w_fit, clean, what: str) -> float:
           f"{what}: rmse in w against the generating smile < 5e-4 (got {rmse:.3e})")
     return rmse
 
+# the raw-SVI calibration's least work, counted in fused form: about 35
+# float32 instructions a quote for a full pass (the residual, four Jacobian
+# columns, the 21 sums as fused multiply-adds; a square root and a
+# reciprocal on the SFU beside them), about 10 for a pass that forms the
+# cost alone, and about 100 a slice an iteration for the damped 5 x 5
+# Cholesky and its two substitutions. A slice needs a full pass at the
+# start, then in each iteration it runs (up to the one it converges in)
+# the solve and the trial's pass: a full one where the trial is accepted
+# (the next J^T J), a cost-only one where it is rejected (the kernel
+# itself fuses nothing, to match its plain version bit for bit, and runs a
+# rejected trial's pass to the end). The card issues F32_OPS_S / 2 float32
+# instructions a second (128 lanes x 132 SMs x 1.98 GHz; F32_OPS_S counts
+# a fused multiply-add as two operations).
+SVI_QUOTE_OPS = 35
+SVI_COST_OPS = 10
+SVI_SOLVE_OPS = 100
+# the kernel's timed shape: phase 9's 1,024 surfaces tiled to the cell's
+# 32,768 (983,040 slices), 50 iterations
+SVI_LM = dict(surfaces=32768, iters=50)
 
-def calibrated_fits(P, data) -> dict:
+
+def svi_lm_cases(P, data) -> dict:
+    """Phase 9 (a): the raw-SVI kernel (``fit_svi_batched``'s route on the
+    card for the linear loss without a penalty) on P's slices. From the
+    heuristic start (the book's): one launch, the generic loop's counter
+    unmoved, bit for bit its plain version on the card (the same IEEE
+    operations in the same order, none fused) and the first 4,096 slices on
+    CPU tensors. From the quasi start (as (a)'s fits): against the generic
+    loop on the card, fitted w within 5e-5 of the slice's largest w (two
+    float32 LMs that round differently take other accept/reject decisions:
+    the bound of (a)'s card-against-CPU check) and both within the
+    generating smile's bound. Then timed at SVI_LM beside the plain
+    version, equal to it bit for bit there too, and beside the least work
+    of the run's own iterations (SVI_QUOTE_OPS, SVI_COST_OPS,
+    SVI_SOLVE_OPS): each slice's iterations up to the one it converged in,
+    read from the kernel's ``converged`` after 1, 2, ... iterations (a
+    converged slice is frozen, so the flag never falls back), and its
+    accepted steps."""
+    from functools import partial
+
+    from iv_interpolation_tpu_torch.ops import lm, svi
+    from iv_interpolation_tpu_torch.ops.cuda import svi_lm as K
+
+    n, iters = P["N"], P["iters"]
+    kf = data["k"].to(DEV).reshape(-1, n).contiguous()
+    wf = data["w"]["svi"].to(DEV).reshape(-1, n).contiguous()
+    clean = data["clean"]["svi"].to(DEV).reshape(-1, n)
+    p0 = svi.svi_init(kf, wf)
+    args = (iters, lm.LAMBDA0, lm.TOL, svi.SVI_LOWER, svi.SVI_UPPER)
+    before = (K.svi_lm_cuda.launches, lm.levenberg_marquardt_batched.calls)
+    got = K.svi_lm_cuda(kf, wf, None, p0, *args)
+    torch.cuda.synchronize()
+    check((K.svi_lm_cuda.launches, lm.levenberg_marquardt_batched.calls)
+          == (before[0] + 1, before[1]), "(a) svi_lm: one kernel launch, no generic loop")
+    plain = K.svi_lm_plain(kf, wf, None, p0, *args)
+    check(all(same_with_nan(a, b) for a, b in zip(got, plain)),
+          "(a) svi_lm: the kernel equals its plain version on the card bit for bit")
+    C = min(4096, kf.shape[0])
+    on_cpu = K.svi_lm_plain(kf[:C].cpu(), wf[:C].cpu(), None, p0[:C].cpu(), *args)
+    check(all(same_with_nan(a[:C].cpu(), b) for a, b in zip(got, on_cpu)),
+          "(a) svi_lm: the kernel equals its plain version on CPU tensors bit for bit")
+    pq = svi.svi_quasi_init(kf, wf)
+    got = K.svi_lm_cuda(kf, wf, None, pq, *args)
+    generic = lm.levenberg_marquardt_batched(
+        partial(svi._svi_residual, butterfly_penalty=0.0), pq, kf, wf, torch.ones_like(wf),
+        max_iters=iters, lower=svi.SVI_LOWER, upper=svi.SVI_UPPER)
+    w_kernel = svi.svi_total_variance(got.params, kf)
+    w_generic = svi.svi_total_variance(generic.params, kf)
+    err = w_close(w_kernel, w_generic.cpu(), wf.cpu(), "(a) svi_lm against the generic loop")
+    rmse = {"kernel": recovery(w_kernel, clean, "(a) svi_lm kernel"),
+            "generic": recovery(w_generic, clean, "(a) svi_lm generic loop")}
+    lower_cost = float((got.cost <= generic.cost).float().mean())
+    log(f"  (a) svi_lm at {kf.shape[0]:,} slices x {n}, {iters} iterations: = plain from the "
+        f"heuristic start (card, bit for bit; CPU tensors, {C} slices); from the quasi start "
+        f"against the generic loop w within {err:.2e} of scale, rmse vs the generating smile "
+        f"{rmse}, cost at most the generic loop's on {lower_cost:.1%} of slices; converged "
+        f"{float(got.converged.float().mean()):.1%} / {float(generic.converged.float().mean()):.1%}")
+    reps = SVI_LM["surfaces"] // P["B"]
+    kb, wb, pb = (a.repeat(reps, 1) for a in (kf, wf, p0))
+    S, its = kb.shape[0], SVI_LM["iters"]
+    big = (its, lm.LAMBDA0, lm.TOL, svi.SVI_LOWER, svi.SVI_UPPER)
+    runs = {}
+    ms = cuda_ms(lambda: runs.update(kernel=K.svi_lm_cuda(kb, wb, None, pb, *big)), 5)
+    plain_ms = cuda_ms(lambda: runs.update(plain=K.svi_lm_plain(kb, wb, None, pb, *big)), 1)
+    check(all(same_with_nan(a, b) for a, b in zip(runs["kernel"], runs["plain"])),
+          f"(a) svi_lm: the kernel equals its plain version at {S:,} slices bit for bit")
+    # the iterations each slice runs: 1 + the counts of 1 .. its - 1 after
+    # which it had not converged (the tiled copies run alike)
+    ran = torch.ones(kf.shape[0], dtype=torch.float64, device=DEV)
+    for i in range(1, its):
+        done_i = K.svi_lm_cuda(kf, wf, None, p0, i, *big[1:]).converged
+        ran += (~done_i).double()
+    accepted = runs["kernel"].n_accepted[:kf.shape[0]].double()
+    quote_ops = n * (SVI_QUOTE_OPS * (1 + accepted) + SVI_COST_OPS * (ran - accepted))
+    ops = reps * float((quote_ops + SVI_SOLVE_OPS * ran).sum())
+    full = S * ((its + 1) * n * SVI_QUOTE_OPS + its * SVI_SOLVE_OPS)
+    nbytes = S * (2 * n + 5) * 4 + S * (5 * 4 + 4 + 4 + 1)
+    row = timing_row(f"svi lm slices={S} n={n} iters={its} float32", ms, plain_ms, nbytes, ops,
+                     None, ops_s=F32_OPS_S / 2, iterations_mean=float(ran.mean()),
+                     accepted_mean=float(accepted.mean()), ops_least=ops,
+                     ops_every_iteration_full=full)
+    return {**row, "shapes": [row], "against_generic": {"w_err": err, "rmse": rmse,
+                                                         "cost_at_most_generic": lower_cost}}
+
+
+def calibrated_fits(P, data, reset_counts, read_lm) -> dict:
     """Phase 9 (a)-(c): the batched fits on the card, each held to the same
     call on CPU tensors at P["cpu"] surfaces and to the generating smile,
-    and timed."""
+    and timed. SVI's first call of each kind, with the counts set to 0
+    just before it: the linear loss without a penalty launches the raw-SVI
+    kernel once and calls no generic loop; the hinge and Huber call the
+    generic loop once and launch no kernel."""
     from iv_interpolation_tpu_torch.ops import essvi, sabr, svi
 
     B, E, n, iters, C = P["B"], P["E"], P["N"], P["iters"], P["cpu"]
@@ -2736,7 +2848,12 @@ def calibrated_fits(P, data) -> dict:
                      ("svi quasi + huber", {"loss": "huber"})):
         fit = lambda it, kw=kw: svi.fit_svi_batched(k_dev, dev["svi"], max_iters=it,
                                                     init="quasi", **kw)
+        reset_counts()
         res = fit(iters)
+        lm_calls = read_lm()
+        want = {"svi_lm": 0, "generic_lm": 1} if kw else {"svi_lm": 1, "generic_lm": 0}
+        check(lm_calls == want, f"(a) {name}: one call, "
+              f"{'the generic loop' if kw else 'one raw-SVI kernel launch'}: {lm_calls}")
         w_fit = svi.svi_total_variance(res.params, k_dev)
         check(tuple(res.params.shape) == (B, E, 5) and res.params.dtype == torch.float32,
               f"(a) {name}: params shape and dtype")
@@ -2748,7 +2865,8 @@ def calibrated_fits(P, data) -> dict:
         report(name, "slices", B * E, timed_fit(fit, iters), rmse, err,
                launches_a_fit(fit, iters) if not kw else None,
                f"; accepted steps mean {float(res.n_accepted.float().mean()):.1f}, "
-               f"converged {float(res.converged.float().mean()):.1%}")
+               f"converged {float(res.converged.float().mean()):.1%}; a call: {lm_calls}")
+        out[name]["lm_calls"] = lm_calls
 
     # (b) eSSVI: the block solver on every surface, the dense one on a part
     for name, solver, nb, nc in (("essvi block", "block", B, C),
@@ -2787,7 +2905,7 @@ def calibrated_fits(P, data) -> dict:
     return out
 
 
-def calibrated_surfaces(P, data) -> dict:
+def calibrated_surfaces(P, data, reset_counts, read_lm) -> dict:
     """Phase 9 (d) and (e): ``fit_eval_surface`` for the three methods and
     ``greek_surfaces`` on its grids, held to CPU tensors at P["cpu"]
     surfaces. ``fit_eval_surface`` starts SVI from the heuristic init, from
@@ -2796,7 +2914,9 @@ def calibrated_surfaces(P, data) -> dict:
     within 5e-5 of the slice's scale on at least 99 % of the slices and
     within 1e-3 on all, the per-surface fit_rmse within 1e-5, and at most
     2 of the 2 x 64 flags different (a g or a calendar gap that sits on
-    its tolerance may fall on either side of it on the two devices)."""
+    its tolerance may fall on either side of it on the two devices). The
+    first svi call, with the counts set to 0 just before it, launches the
+    raw-SVI kernel once and calls no generic loop."""
     from iv_interpolation_tpu_torch.surface import greeks, surface
 
     B, E, M, iters, C = P["B"], P["E"], P["M"], P["iters"], P["cpu"]
@@ -2806,7 +2926,12 @@ def calibrated_surfaces(P, data) -> dict:
         iv_dev = data["iv"][method].to(DEV)
         step = lambda: surface.fit_eval_surface(k_dev, iv_dev, T_dev, method=method, n_grid=M,
                                                 svi_iters=iters)
+        reset_counts()
         res = step()
+        lm_calls = read_lm()
+        if method == "svi":
+            check(lm_calls == {"svi_lm": 1, "generic_lm": 0},
+                  f"(d) svi: one raw-SVI kernel launch a call, no generic loop: {lm_calls}")
         check(tuple(res["w_grid"].shape) == (B, E, M) and res["w_grid"].dtype == torch.float32
               and bool(torch.isfinite(res["w_grid"]).all() and torch.isfinite(res["g"]).all()),
               f"(d) {method}: w_grid and g finite, (B, E, M)")
@@ -2832,7 +2957,8 @@ def calibrated_surfaces(P, data) -> dict:
         log(f"  (d) fit_eval_surface {method}: {ms:.1f} ms a call, {B / (ms / 1e3):,.0f} "
             f"surfaces/s, peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; median "
             f"fit_rmse {rmse:.2e}, both flags clean {both:.1%}")
-        out[method] = {"ms": ms, "surfaces_per_s": B / (ms / 1e3), "both_clean": both}
+        out[method] = {"ms": ms, "surfaces_per_s": B / (ms / 1e3), "both_clean": both,
+                       "lm_calls": lm_calls}
         if method == "svi":
             grids = (res["k_grid"], res["iv_grid"])
     rng = np.random.default_rng(P["seed"] + 1)
@@ -4743,8 +4869,9 @@ def main(argv=()) -> int:
     from iv_interpolation_tpu_torch import _build
     from iv_interpolation_tpu_torch.ops.cuda import spline_eval as se
     from iv_interpolation_tpu_torch.ops.cuda import stream_agg as agg
+    from iv_interpolation_tpu_torch.ops.cuda import svi_lm
     from iv_interpolation_tpu_torch.ops.cuda import tridiag
-    from iv_interpolation_tpu_torch.ops import segment_ohlcv
+    from iv_interpolation_tpu_torch.ops import lm, segment_ohlcv
     from iv_interpolation_tpu_torch.ops import tridiag as ops_tridiag
     from iv_interpolation_tpu_torch.pipeline import runner, tasks
     from iv_interpolation_tpu_torch.pipeline import storage as st
@@ -4782,12 +4909,12 @@ def main(argv=()) -> int:
 
     # each main path runs with the launch counts set to 0 just before it
     # and read just after it; each read also keeps B1's launches by route
-    # and the spline evaluation's launches by dtype since the last reset,
-    # under the phase it ran in
+    # and the spline evaluation's and the raw-SVI kernel's launches by dtype
+    # since the last reset, under the phase it ran in
     route_reads, phase_now = [], ["phases 3-4"]
 
     def reset_counts():
-        route_reads.append([phase_now[0], None, None])
+        route_reads.append([phase_now[0], None, None, None])
         tridiag.tridiag_solve_cuda.launches = 0
         tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
         tridiag.tridiag_solve_cuda.launches_by_route.update(dict.fromkeys(tridiag.ROUTES, 0))
@@ -4796,11 +4923,15 @@ def main(argv=()) -> int:
         se.spline_eval_cuda.launches = 0
         se.spline_eval_cuda.launches_by_dtype.update(float32=0, float64=0)
         se.spline_eval_cuda.launches_by_route.update(dict.fromkeys(se.ROUTES, 0))
+        svi_lm.svi_lm_cuda.launches = 0
+        svi_lm.svi_lm_cuda.launches_by_dtype.update(float32=0, float64=0)
+        lm.levenberg_marquardt_batched.calls = 0
 
     def read_routes():
         if route_reads:
             route_reads[-1][1] = dict(tridiag.tridiag_solve_cuda.launches_by_route)
             route_reads[-1][2] = dict(se.spline_eval_cuda.launches_by_dtype)
+            route_reads[-1][3] = dict(svi_lm.svi_lm_cuda.launches_by_dtype)
 
     def read_counts():
         read_routes()
@@ -4812,6 +4943,11 @@ def main(argv=()) -> int:
         by = tridiag.tridiag_solve_cuda.launches_by_dtype
         return {"b1_f32": by["float32"], "b1_f64": by["float64"],
                 "b2": agg.aggregate_ohlcv_cuda.launches}
+
+    def read_lm():
+        read_routes()
+        return {"svi_lm": svi_lm.svi_lm_cuda.launches,
+                "generic_lm": lm.levenberg_marquardt_batched.calls}
 
     def done(n):
         log(f"  phase {n} done at {time.perf_counter() - t_start:.1f} s")
@@ -4886,8 +5022,10 @@ def main(argv=()) -> int:
         log("phase 9: the calibrated families")
         log(f"  card: {smi.splitlines()[0]}")
         data = calib_data(CALIB)
-        fits = calibrated_fits(CALIB, data)
-        calib = calibrated_surfaces(CALIB, data)
+        svi_rows = svi_lm_cases(CALIB, data)
+        torch.cuda.empty_cache()
+        fits = calibrated_fits(CALIB, data, reset_counts, read_lm)
+        calib = calibrated_surfaces(CALIB, data, reset_counts, read_lm)
         del data
         torch.cuda.empty_cache()
         if store is None:
@@ -4988,11 +5126,12 @@ def main(argv=()) -> int:
     # the spline evaluation's launches by phase, both dtypes, over every
     # path of this process (phases 12 and 14 run theirs in processes of
     # their own but for phase 14's entry point)
-    spline_by_phase = {}
-    for phase, _, by_dtype in route_reads:
-        for dtype, k in (by_dtype or {}).items():
-            by = spline_by_phase.setdefault(phase, {"float32": 0, "float64": 0})
-            by[dtype] += k
+    spline_by_phase, svi_by_phase = {}, {}
+    for phase, _, spline_by, svi_by in route_reads:
+        for by_phase, by_dtype in ((spline_by_phase, spline_by), (svi_by_phase, svi_by)):
+            for dtype, k in (by_dtype or {}).items():
+                by = by_phase.setdefault(phase, {"float32": 0, "float64": 0})
+                by[dtype] += k
     # launches on each main path, by kernel (phases 3-6 solve in float32;
     # B2 runs in float64 on phase 6's float64 pipeline only)
     paths = {
@@ -5078,10 +5217,21 @@ def main(argv=()) -> int:
     # stage), and every main-path shape under "shapes"
     spline_src = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/spline_eval.cu",
                       replaces="none (the JAX package leaves the evaluation to XLA)")
+    svi_src = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/svi_lm.cu",
+                   replaces="none (the JAX package leaves its batched LM to XLA)")
+    # the raw-SVI kernel's launches and the generic loop's calls in one
+    # call of each SVI main path (checked in phase 9 (a) and (d))
+    svi_calls = {"fit_svi_batched quasi (phase 9 (a))": fits["svi quasi"]["lm_calls"],
+                 "fit_svi_batched quasi + hinge (phase 9 (a))":
+                     fits["svi quasi + hinge"]["lm_calls"],
+                 "fit_svi_batched quasi + huber (phase 9 (a))":
+                     fits["svi quasi + huber"]["lm_calls"],
+                 "fit_eval_surface svi (phase 9 (d))": calib["svi"]["lm_calls"]}
+    paths["svi_lm"] = {path: calls["svi_lm"] for path, calls in svi_calls.items()}
     results = {"tridiag_thomas_f32": (thomas, b1["float32"]),
                "tridiag_thomas_f64": (thomas, b1["float64"]),
                "stream_agg": (agg_src, b2), "stream_agg_f64": (agg_src, b2_f64),
-               "spline_eval": (spline_src, spl)}
+               "spline_eval": (spline_src, spl), "svi_lm": (svi_src, svi_rows)}
     kernels = [{"name": name, "launches": sum(paths[name].values()), "paths": paths[name],
                 **rows, **source} for name, (source, rows) in results.items()]
     # B1's launches by route on the paths that read them by dtype, and on
@@ -5094,7 +5244,7 @@ def main(argv=()) -> int:
     # its batch.
     ah64 = ah_res["b1_f64_by_batch"]
     by_phase = {}
-    for phase, routes, _ in route_reads:
+    for phase, routes, *_ in route_reads:
         for route, k in (routes or {}).items():
             if k:
                 by = by_phase.setdefault(phase, dict.fromkeys(tridiag.ROUTES, 0))
@@ -5104,7 +5254,10 @@ def main(argv=()) -> int:
                (SUB_N, 48, "float32"): runner30["float32"]["shapes"].get((SUB_N, 48), 0),
                (257, 512, "float64"): ah64.get(("float64", AH["cpu"]), 0),
                (257, 8192, "float64"): ah64.get(("float64", AH["cpu"] * AH["m"]), 0)}
-    kernels[-1]["launches_by_dtype"] = spline_by_phase
+    kernels[-2]["launches_by_dtype"] = spline_by_phase
+    kernels[-1]["launches_by_dtype"] = svi_by_phase
+    kernels[-1]["generic_lm_calls"] = {path: calls["generic_lm"]
+                                       for path, calls in svi_calls.items()}
     for entry, dtype in zip(kernels, ("float32", "float64")):
         for row in entry["shapes"]:
             n, batch = (int(row["shape"].split(f"{k}=")[1].split()[0]) for k in ("n", "batch"))

@@ -130,7 +130,7 @@ def pin_precision() -> None:
 
 
 def _declare(lib: ctypes.CDLL) -> None:
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    p, i, ll, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_double
     signatures = {
         # dl, d, du, b, x, n, batch, systems a block, stream
         "ivt_thomas_staged_f32": [p] * 5 + [i, ll, i, p],
@@ -151,6 +151,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # t_query, slices a block, queries a block, staged, stream
         "ivt_spline_eval_f32": [p] * 7 + [ll, i, i, ll, ll, ll, ll, i, i, i, p],
         "ivt_spline_eval_f64": [p] * 7 + [ll, i, i, ll, ll, ll, ll, i, i, i, p],
+        # k, w, weights, p0, params, cost, n_accepted, converged, slices,
+        # n, iterations, lambda0, tol, bounds (10 doubles on the host), stream
+        "ivt_svi_lm_f32": [p] * 8 + [ll, i, i, d, d, ctypes.POINTER(d), p],
+        "ivt_svi_lm_f64": [p] * 8 + [ll, i, i, d, d, ctypes.POINTER(d), p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -41,6 +41,11 @@ from torch.func import jacfwd, vmap
 from iv_interpolation_tpu_torch.monitoring.metrics import span
 
 
+# the damping a problem starts from and the convergence tolerance, the
+# defaults of every loop here and of the raw-SVI kernel (ops.cuda.svi_lm)
+LAMBDA0, TOL = 1e-3, 1e-12
+
+
 class LMResult(NamedTuple):
     params: torch.Tensor      # (..., P) final parameters
     cost: torch.Tensor        # (...,) final 0.5*sum(r^2)
@@ -81,8 +86,8 @@ def solve_spd(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def levenberg_marquardt_batched(residual_fn: Callable, params0: torch.Tensor, *args,
-                                max_iters: int = 50, lambda0: float = 1e-3,
-                                tol: float = 1e-12, lower=None, upper=None,
+                                max_iters: int = 50, lambda0: float = LAMBDA0,
+                                tol: float = TOL, lower=None, upper=None,
                                 linearize: Callable | None = None) -> LMResult:
     """Minimise ``0.5 * ||residual_fn(p, *args)||^2`` for a batch of
     problems: ``params0`` (B, P) and every tensor of ``args`` carry the

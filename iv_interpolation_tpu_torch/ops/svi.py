@@ -22,7 +22,10 @@ import numpy as np
 import torch
 
 from iv_interpolation_tpu_torch.monitoring.metrics import span
+from iv_interpolation_tpu_torch.ops.cuda.svi_lm import svi_lm_cuda
 from iv_interpolation_tpu_torch.ops.lm import (
+    LAMBDA0,
+    TOL,
     LMResult,
     levenberg_marquardt,
     levenberg_marquardt_batched,
@@ -200,14 +203,29 @@ def fit_svi_batched(k: torch.Tensor, w: torch.Tensor,
     squares: bad quotes pull the fit with bounded force
     (``ops.lm.robustify``). The start is computed inside span
     ``iv.svi.init``.
+
+    On CUDA tensors of one dtype, float32 or float64, the linear loss
+    without a butterfly penalty runs as one launch of the raw-SVI kernel
+    (``ops.cuda.svi_lm.svi_lm_cuda``: the generic loop's algorithm with
+    the closed-form Jacobian); every other call runs the generic loop
+    (``ops.lm.levenberg_marquardt_batched``).
     """
-    if weights is None:
-        weights = torch.ones_like(w)
     batch_shape = w.shape[:-1]
     n = w.shape[-1]
-    kf, wf, wtf = (a.reshape(-1, n) for a in (k, w, weights))
+    kf, wf = (a.reshape(-1, n) for a in (k, w))
     with span("iv.svi.init"):
         p0 = svi_quasi_init(kf, wf) if init == "quasi" else svi_init(kf, wf)
+    arrays = (k, w) if weights is None else (k, w, weights)
+    if (w.device.type == "cuda" and loss == "linear" and butterfly_penalty == 0.0
+            and w.dtype in (torch.float32, torch.float64)
+            and all(a.dtype == w.dtype and a.device == w.device for a in arrays)):
+        wtf = None if weights is None else weights.reshape(-1, n).contiguous()
+        fit = svi_lm_cuda(kf.contiguous(), wf.contiguous(), wtf, p0.contiguous(), max_iters,
+                          LAMBDA0, TOL, SVI_LOWER, SVI_UPPER)
+        return LMResult(*(a.reshape(batch_shape + a.shape[1:]) for a in fit))
+    if weights is None:
+        weights = torch.ones_like(w)
+    wtf = weights.reshape(-1, n)
     residual = partial(_svi_residual, butterfly_penalty=butterfly_penalty)
     if loss == "huber":
         residual = robustify(residual, huber_delta)

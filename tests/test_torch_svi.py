@@ -5,9 +5,11 @@ Closed forms (``svi_total_variance``, ``svi_g``, ``vega_weights``,
 ``adjugate3x3``, ``_solve3x3``) float64 <= 1e-12 relative; inits
 (``svi_init``, ``svi_quasi_init``) <= 1e-9; batched fits in float64:
 fitted w at the quotes <= 1e-8 absolute, params <= 1e-6, ``n_accepted``
-and ``converged`` equal; in float32 (accept/reject decisions fall inside
-rounding, so the iterate paths differ): fitted w at the quotes within
-5e-5 of the slice's w scale and cost within a factor 1.5.
+and ``converged`` equal, also for the raw-SVI kernel's plain version
+(the card's route for the linear loss without a penalty); in float32
+(accept/reject decisions fall inside rounding, so the iterate paths
+differ): fitted w at the quotes within 5e-5 of the slice's w scale and
+cost within a factor 1.5.
 """
 
 import jax
@@ -17,7 +19,9 @@ import pytest
 import torch
 
 from iv_interpolation_tpu.ops import svi as ref
+from iv_interpolation_tpu_torch.ops import lm
 from iv_interpolation_tpu_torch.ops import svi as port
+from iv_interpolation_tpu_torch.ops.cuda.svi_lm import svi_lm_cuda
 
 TRUE_SVI = np.array([0.04, 0.4, -0.4, 0.05, 0.3])  # (a, b, rho, m, sigma)
 
@@ -132,6 +136,42 @@ def test_batched_fit_float64_matches_jax(rng, case):
     np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost), rtol=1e-9)
     if "loss" not in CASES[case]:      # the robust fits need more than 32 iterations
         assert np.sqrt(np.mean((w_got - w) ** 2)) < 5e-4
+
+
+# On CUDA tensors the linear loss without a penalty takes the raw-SVI
+# kernel (``ops/cuda/svi_lm.py``), whose algorithm is not the generic
+# loop's (closed-form Jacobian, sums in runs of 8, elementwise Cholesky);
+# ``svi_lm_cuda`` on CPU tensors runs its plain version, equal to the
+# kernel bit for bit on the card. Held to the JAX package at the generic
+# loop's float64 tolerances above.
+KERNEL_CASES = {
+    "heuristic": dict(),
+    "quasi": dict(init="quasi"),
+    "vega_weights": dict(weights=True),
+    "fifty_strikes": dict(n=50, init="quasi"),
+}
+
+
+@pytest.mark.parametrize("case", list(KERNEL_CASES))
+def test_raw_svi_kernel_route_float64_matches_jax(rng, case):
+    kw = dict(KERNEL_CASES[case])
+    weighted, n = kw.pop("weights", False), kw.pop("n", 21)
+    k, w, _ = _slices(rng, B=24, n=n)
+    wt = np.array(ref.vega_weights(jnp.asarray(k), jnp.asarray(w))) if weighted else None
+    tk, tw = torch.from_numpy(k), torch.from_numpy(w)
+    p0 = (port.svi_quasi_init if kw.get("init") == "quasi" else port.svi_init)(tk, tw)
+    got = svi_lm_cuda(tk, tw, None if wt is None else torch.from_numpy(wt), p0, 32,
+                      lm.LAMBDA0, lm.TOL, port.SVI_LOWER, port.SVI_UPPER)
+    want = ref.fit_svi_batched(jnp.asarray(k), jnp.asarray(w),
+                               None if wt is None else jnp.asarray(wt), max_iters=32, **kw)
+    w_got = port.svi_total_variance(got.params, tk).numpy()
+    w_want = np.asarray(ref.svi_total_variance(want.params, jnp.asarray(k)))
+    np.testing.assert_allclose(w_got, w_want, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(got.params.numpy(), np.asarray(want.params), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.n_accepted.numpy(), np.asarray(want.n_accepted))
+    np.testing.assert_array_equal(got.converged.numpy(), np.asarray(want.converged))
+    np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost), rtol=1e-9)
+    assert np.sqrt(np.mean((w_got - w) ** 2)) < 5e-4
 
 
 @pytest.mark.parametrize("case", list(CASES))
