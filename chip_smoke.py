@@ -524,12 +524,18 @@ def tridiag_cases(tridiag, lib) -> dict:
         planned = lambda: tridiag.tridiag_solve_cuda(dl, d, du, b)
         scratch = scratch_route(lib, dl, d, du, b)
         turns = [device_ms(f, 20, CALLS) for f in (planned, scratch, scratch, planned)]
-        if plan.route == "staged":
+        # every main path hands B1 its systems batch-last; the layout it
+        # launches follows from the shape (layout_turns times the
+        # batch-last kernel's systems a block)
+        main_plan = tridiag.thomas_plan(n, dtype, batch, "batch_last")
+        if main_plan.route == "staged":
+            extra.update(layout_turns(tridiag, lib, dl, d, du, b, x, main_plan.layout))
+        if main_plan.layout == "system_major" and plan.route == "staged":
             # the plan's choice of systems a block against the other tiles
             extra["ms_by_systems_a_block"] = {
                 S: round(device_ms(staged_route(lib, dl, d, du, b, S), 20, CALLS), 5)
                 for S in (32, 64, 128) if 4 * n * S * d.element_size() <= 232448}
-        else:
+        elif main_plan.layout == "system_major":
             extra["ms_by_systems_a_block"] = {
                 S: round(device_ms(partitioned_route(lib, dl, d, du, b, S), 20, CALLS), 5)
                 for S in (4, 8, 16) if tridiag.partitioned_smem(n, dtype, S) <= 232448}
@@ -537,20 +543,67 @@ def tridiag_cases(tridiag, lib) -> dict:
         # graph at large n keep its capture short
         plain_ms = device_ms(lambda: tridiag.tridiag_solve_plain(dl, d, du, b), 5,
                              CALLS if n <= 300 else 2)
+        kernel_ms = extra.pop("batch_last_ms", (turns[0] + turns[3]) / 2)
         rows[key].append(timing_row(
-            f"B1 {B1_MAIN[n, batch, dtype]} n={n} batch={batch} {key}",
-            (turns[0] + turns[3]) / 2, plain_ms, 5 * n * batch * d.element_size(),
+            f"B1 {B1_MAIN[n, batch, dtype]} n={n} batch={batch} {key} {main_plan.layout}",
+            kernel_ms, plain_ms, 5 * n * batch * d.element_size(),
             # float32 LU strays to 1.2e-3 on the AH systems (measured on an
             # H100), where the kernel holds 68 ulps of the plain loop
             9 * n * batch, dense_solve_ms(dl, d, du, b, x, 1e-2 if ah_like else 1e-3),
             ops_s=F32_OPS_S if dtype == F32 else F64_OPS_S,
-            thomas_route=plan.route, scratch_route_ms=(turns[1] + turns[2]) / 2,
-            turns=[round(t, 5) for t in turns], ms_one_call_a_graph=device_ms(planned, 20),
-            systems_a_block=plan.systems, max_abs_err=err, rel_err=err / xmax, **extra))
+            thomas_route=main_plan.route, main_path_layout=main_plan.layout,
+            scratch_route_ms=(turns[1] + turns[2]) / 2, turns=[round(t, 5) for t in turns],
+            **{"ms_one_call_a_graph": device_ms(planned, 20), **extra},
+            systems_a_block=main_plan.systems, smem=main_plan.smem, max_abs_err=err,
+            rel_err=err / xmax))
         del scratch
     return {key: {"max_abs_err": worst[key], **{k: v for k, v in rows[key][0].items()
                                                 if k != "max_abs_err"}, "shapes": rows[key]}
             for key in rows}
+
+
+def layout_turns(tridiag, lib, dl, d, du, b, x, layout) -> dict:
+    """B1 on the batch-last layout of these (n, batch) systems (the
+    transposes of row-major (batch, n) arrays, as the cubic fit builds
+    them), as its main path takes them in ``layout``: the batch-last
+    kernel, or the copies to row-major and the system-major kernel. x is
+    the system-major kernel's, bit for bit. Timed in turns against the
+    system-major kernel on row-major arrays and, where the batch-last
+    kernel runs, against the route it replaced (the four row-major copies,
+    then the system-major kernel): (system-major, batch-last, copies,
+    copies, batch-last, system-major), else (system-major, copies, copies,
+    system-major)."""
+    n, batch = d.shape
+    last = [a.T.contiguous().mT for a in (dl, d, du, b)]
+    layouts = dict(tridiag.tridiag_solve_cuda.launches_by_layout)
+    got = tridiag.tridiag_solve_cuda(*last)
+    torch.cuda.synchronize()
+    counted = {k: v - layouts[k] for k, v in tridiag.tridiag_solve_cuda.launches_by_layout.items()}
+    check(counted == {lay: int(lay == layout) for lay in tridiag.LAYOUTS},
+          f"B1 n={n} batch={batch} {d.dtype} on batch-last arrays counted {layout}: {counted}")
+    check(got.stride() == ((1, n) if layout == "batch_last" else (batch, 1))
+          and torch.equal(got, x),
+          f"B1 on batch-last arrays ({layout}) equals the system-major kernel bit for bit "
+          f"at n={n} batch={batch} {d.dtype}")
+    system = lambda: tridiag.tridiag_solve_cuda(dl, d, du, b)
+    main = lambda: tridiag.tridiag_solve_cuda(*last)
+    copies = lambda: tridiag.tridiag_solve_cuda(*(a.contiguous() for a in last))
+    order = (system, main, copies, copies, main, system) if layout == "batch_last" else (
+        system, copies, copies, system)
+    turns = [device_ms(f, 20, CALLS) for f in order]
+    out = {"system_major_ms": (turns[0] + turns[-1]) / 2,
+           "copies_then_system_major_ms": (turns[len(turns) // 2 - 1] + turns[len(turns) // 2]) / 2,
+           "layout_turns": [round(t, 5) for t in turns]}
+    if layout == "batch_last":
+        out["batch_last_ms"] = (turns[1] + turns[4]) / 2
+        out["ms_one_call_a_graph"] = device_ms(main, 20)
+        out["ms_by_systems_a_block"] = {
+            S: round(device_ms(staged_route(lib, *last, S), 20, CALLS), 5)
+            for S in (32, 64, 128)
+            if 4 * tridiag.batch_last_rows(n, d.dtype) * S * d.element_size() <= 232448}
+    del last, got
+    torch.cuda.empty_cache()
+    return out
 
 
 def _suffix(t) -> str:
@@ -559,10 +612,12 @@ def _suffix(t) -> str:
 
 def staged_route(lib, dl, d, du, b, S):
     """A call of the staged Thomas kernel with S systems a block, outside
-    the wrapper, so it counts no launch."""
+    the wrapper, so it counts no launch: the batch-last kernel on
+    batch-last arrays, else the system-major one."""
     n, batch = d.shape
-    x = torch.empty_like(b)
-    staged = getattr(lib, f"ivt_thomas_staged_{_suffix(d)}")
+    last = not d.is_contiguous()
+    x = torch.empty((batch, n), dtype=b.dtype, device=b.device).mT if last else torch.empty_like(b)
+    staged = getattr(lib, f"ivt_thomas_staged_{'batch_last_' if last else ''}{_suffix(d)}")
 
     def run():
         err = staged(*(a.data_ptr() for a in (dl, d, du, b, x)), n,
@@ -968,11 +1023,14 @@ def surface_step(surface, tridiag, se) -> dict:
                                         spline_bc="not-a-knot")
 
     before = tridiag.tridiag_solve_cuda.launches
+    layouts = dict(tridiag.tridiag_solve_cuda.launches_by_layout)
     evals = se.spline_eval_cuda.launches
     out = step(iv_clean)
     torch.cuda.synchronize()
-    check(tridiag.tridiag_solve_cuda.launches > before,
-          "the surface step launched the Thomas kernel")
+    check(tridiag.tridiag_solve_cuda.launches == before + 1
+          and tridiag.tridiag_solve_cuda.launches_by_layout["batch_last"]
+          == layouts["batch_last"] + 1,
+          "the surface step launched the Thomas kernel once, on its systems batch-last")
     check(se.spline_eval_cuda.launches == evals + 2,
           "the surface step launched the spline evaluation twice (grid, quotes)")
     w = out["w_grid"]
@@ -4148,6 +4206,7 @@ def mesh_rank(args: dict) -> int:
         tridiag.tridiag_solve_cuda.launches = 0
         tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
         tridiag.tridiag_solve_cuda.launches_by_route.update(dict.fromkeys(tridiag.ROUTES, 0))
+        tridiag.tridiag_solve_cuda.launches_by_layout.update(dict.fromkeys(tridiag.LAYOUTS, 0))
         agg.aggregate_ohlcv_cuda.launches = 0
 
     def read():
@@ -4914,10 +4973,11 @@ def main(argv=()) -> int:
     route_reads, phase_now = [], ["phases 3-4"]
 
     def reset_counts():
-        route_reads.append([phase_now[0], None, None, None])
+        route_reads.append([phase_now[0], None, None, None, None])
         tridiag.tridiag_solve_cuda.launches = 0
         tridiag.tridiag_solve_cuda.launches_by_dtype.update(float32=0, float64=0)
         tridiag.tridiag_solve_cuda.launches_by_route.update(dict.fromkeys(tridiag.ROUTES, 0))
+        tridiag.tridiag_solve_cuda.launches_by_layout.update(dict.fromkeys(tridiag.LAYOUTS, 0))
         agg.aggregate_ohlcv_cuda.launches = 0
         agg.aggregate_ohlcv_cuda.launches_by_dtype.update(float32=0, float64=0)
         se.spline_eval_cuda.launches = 0
@@ -4932,6 +4992,7 @@ def main(argv=()) -> int:
             route_reads[-1][1] = dict(tridiag.tridiag_solve_cuda.launches_by_route)
             route_reads[-1][2] = dict(se.spline_eval_cuda.launches_by_dtype)
             route_reads[-1][3] = dict(svi_lm.svi_lm_cuda.launches_by_dtype)
+            route_reads[-1][4] = dict(tridiag.tridiag_solve_cuda.launches_by_layout)
 
     def read_counts():
         read_routes()
@@ -5127,7 +5188,7 @@ def main(argv=()) -> int:
     # path of this process (phases 12 and 14 run theirs in processes of
     # their own but for phase 14's entry point)
     spline_by_phase, svi_by_phase = {}, {}
-    for phase, _, spline_by, svi_by in route_reads:
+    for phase, _, spline_by, svi_by, _ in route_reads:
         for by_phase, by_dtype in ((spline_by_phase, spline_by), (svi_by_phase, svi_by)):
             for dtype, k in (by_dtype or {}).items():
                 by = by_phase.setdefault(phase, {"float32": 0, "float64": 0})
@@ -5243,12 +5304,19 @@ def main(argv=()) -> int:
     # steps) and 1,024 (the tangents); a fit's launches do not depend on
     # its batch.
     ah64 = ah_res["b1_f64_by_batch"]
-    by_phase = {}
-    for phase, routes, *_ in route_reads:
+    by_phase, layout_by_phase = {}, {}
+    for phase, routes, _, _, layouts in route_reads:
         for route, k in (routes or {}).items():
             if k:
                 by = by_phase.setdefault(phase, dict.fromkeys(tridiag.ROUTES, 0))
                 by[route] += k
+        for lay, k in (layouts or {}).items():
+            if k:
+                by = layout_by_phase.setdefault(phase, dict.fromkeys(tridiag.LAYOUTS, 0))
+                by[lay] += k
+    # the surface step's fit reads its systems batch-last (phase 3)
+    check(layout_by_phase.get("phases 3-4", {}).get("batch_last", 0) > 0,
+          f"B1 read the surface step's systems batch-last: {layout_by_phase}")
     on_path = {(719, 768, "float32"): cubic30["float32"]["counts"]["b1_f32"],
                (719, 768, "float64"): cubic30["float64"]["counts"]["b1_f64"],
                (SUB_N, 48, "float32"): runner30["float32"]["shapes"].get((SUB_N, 48), 0),
@@ -5269,6 +5337,7 @@ def main(argv=()) -> int:
             **({"AH float64 fit (phase 10 (b))": ah_res["b1_f64_by_route"]}
                if dtype == "float64" else {}),
             "by phase, both dtypes": by_phase}
+        entry["launches_by_layout"] = {"by phase, both dtypes": layout_by_phase}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

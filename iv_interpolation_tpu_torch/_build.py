@@ -135,6 +135,8 @@ def _declare(lib: ctypes.CDLL) -> None:
         # dl, d, du, b, x, n, batch, systems a block, stream
         "ivt_thomas_staged_f32": [p] * 5 + [i, ll, i, p],
         "ivt_thomas_staged_f64": [p] * 5 + [i, ll, i, p],
+        "ivt_thomas_staged_batch_last_f32": [p] * 5 + [i, ll, i, p],
+        "ivt_thomas_staged_batch_last_f64": [p] * 5 + [i, ll, i, p],
         # dl, d, du, b, x, c' scratch, n, batch, stream
         "ivt_thomas_scratch_f32": [p] * 6 + [i, ll, p],
         "ivt_thomas_scratch_f64": [p] * 6 + [i, ll, p],

@@ -7,6 +7,15 @@ dimension on axis 0; ``dl[0]`` and ``du[n-1]`` are ignored. No pivoting:
 callers supply diagonally dominant systems or M-matrices (spline systems
 and Andreasen-Huge's steps are).
 
+The four arrays share one of two layouts (``LAYOUTS``): "system_major",
+row-major (n, batch), or "batch_last", the transpose of a row-major
+(batch, n) array (``a.mT`` of it), as a fit that builds its systems along
+the last axis has them. A batch-last call that the staged route's
+batch-last kernel takes (:func:`thomas_plan` with ``layout="batch_last"``:
+n a multiple of 16 bytes, its tiles in shared memory; every array 16-byte
+aligned) launches it and returns x batch-last; otherwise the wrapper
+copies the arrays to row-major first and returns x row-major.
+
 :func:`tridiag_solve_cuda` takes the plain version only for tensors on
 the CPU. A CUDA tensor launches the kernel, or the call raises.
 """
@@ -29,6 +38,7 @@ _SMEM_TWO = 113 * 1024          # two such blocks (plus 1 KiB each) fill an SM's
 _SMS = 132                      # the H100's streaming multiprocessors
 _SCRATCH_THREADS = 256          # csrc/tridiag_thomas.cu kScratchThreads
 ROUTES = ("staged", "partitioned", "scratch")
+LAYOUTS = ("system_major", "batch_last")
 
 
 class ThomasPlan(NamedTuple):
@@ -36,11 +46,13 @@ class ThomasPlan(NamedTuple):
     shared memory, a thread a system), "partitioned" (tiles in shared
     memory, a warp a system) or "scratch" (c' in a global scratch array);
     ``threads`` a block; ``smem`` bytes of shared memory a block;
-    ``systems`` a block."""
+    ``systems`` a block; ``layout`` the layout the kernel reads (one of
+    ``LAYOUTS``)."""
     route: str
     threads: int
     smem: int
     systems: int
+    layout: str = "system_major"
 
 
 def partitioned_smem(n: int, dtype: torch.dtype, systems: int) -> int:
@@ -51,9 +63,20 @@ def partitioned_smem(n: int, dtype: torch.dtype, systems: int) -> int:
     return 4 * systems * (LANES * M + 1) * dtype.itemsize
 
 
-def thomas_plan(n: int, dtype: torch.dtype, batch: int | None = None) -> ThomasPlan:
+def batch_last_rows(n: int, dtype: torch.dtype) -> int | None:
+    """Rows a system takes in the batch-last staged kernel's tiles: n
+    padded to an odd number of 16-byte pieces (csrc ``batch_last_stride``),
+    or None where n is no multiple of 16 bytes, which that kernel does not
+    take."""
+    V = 16 // dtype.itemsize
+    return None if n % V else ((n // V) | 1) * V
+
+
+def thomas_plan(n: int, dtype: torch.dtype, batch: int | None = None,
+                layout: str = "system_major") -> ThomasPlan:
     """The launch plan for ``batch`` systems of size ``n`` in ``dtype``, by
-    shape (``batch=None``: a batch large enough to fill the card).
+    shape (``batch=None``: a batch large enough to fill the card), for
+    arrays in ``layout``.
 
     The staged route keeps a block's four (n x S) tiles, 4 n S sizeof(T)
     bytes, in shared memory. S is the largest of 128, 64 and 32 whose tiles
@@ -67,15 +90,26 @@ def thomas_plan(n: int, dtype: torch.dtype, batch: int | None = None) -> ThomasP
     two blocks walks both chains); at a larger batch the largest whose
     tiles let two blocks share an SM (one block's copy overlaps the
     other's phases), else 4. The global-scratch route takes the rest.
+
+    ``layout="batch_last"`` plans the staged batch-last kernel, its tiles
+    sized at :func:`batch_last_rows` rows a system by the same rule, where
+    n is a multiple of 16 bytes and those tiles fit; other shapes get the
+    system-major plan, which a batch-last call reaches by copying.
     """
     if n < 1:
         raise ValueError(f"n must be positive, got {n}")
-    per_system = 4 * n * dtype.itemsize
-    fits = [s for s in _TILES if per_system * s <= _SMEM_ONE]
-    if fits:
-        two = [s for s in fits if per_system * s <= _SMEM_TWO]
-        S = two[0] if two else fits[-1]
-        return ThomasPlan("staged", S, per_system * S, S)
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    rows = batch_last_rows(n, dtype) if layout == "batch_last" else None
+    for lay, r in (("batch_last", rows), ("system_major", n)):
+        if r is None:
+            continue
+        per_system = 4 * r * dtype.itemsize
+        fits = [s for s in _TILES if per_system * s <= _SMEM_ONE]
+        if fits:
+            two = [s for s in fits if per_system * s <= _SMEM_TWO]
+            S = two[0] if two else fits[-1]
+            return ThomasPlan("staged", S, per_system * S, S, lay)
     fits = [s for s in _PART_TILES if partitioned_smem(n, dtype, s) <= _SMEM_ONE]
     if not fits:
         return ThomasPlan("scratch", _SCRATCH_THREADS, 0, _SCRATCH_THREADS)
@@ -187,24 +221,45 @@ def _check(dl, d, du, b) -> None:
                         f"{[a.dtype for a in arrays]}")
     if any(a.device != d.device for a in arrays):
         raise ValueError(f"tensors on different devices: {[a.device for a in arrays]}")
-    if not all(a.is_contiguous() for a in arrays):
-        raise ValueError("dl, d, du and b must be contiguous")
+
+
+def _layout(dl, d, du, b) -> str:
+    """The one layout of the four (n, batch) arrays: "system_major" where
+    all are row-major, else "batch_last" where all are transposes of
+    row-major (batch, n) arrays; anything else raises."""
+    arrays = (dl, d, du, b)
+    if all(a.is_contiguous() for a in arrays):
+        return "system_major"
+    if all(a.stride() == (1, a.shape[0]) for a in arrays):
+        return "batch_last"
+    raise ValueError("dl, d, du and b must all be row-major (n, batch) or all the "
+                     "transposes of row-major (batch, n) arrays: strides "
+                     f"{[a.stride() for a in arrays]}")
 
 
 def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
                        b: torch.Tensor) -> torch.Tensor:
     """Solve the (n, batch) tridiagonal systems ``A x = b``; returns x.
 
-    CPU tensors run :func:`tridiag_solve_plain`; CUDA tensors launch the
-    Thomas kernel (float32 or float64) on the route :func:`thomas_plan`
-    picks for (n, batch). ``tridiag_solve_cuda.launches`` counts kernel
-    launches, one a call, ``tridiag_solve_cuda.launches_by_dtype`` the same
-    launches by dtype name (``"float32"``, ``"float64"``) and
+    The arrays share one of ``LAYOUTS``. CPU tensors run
+    :func:`tridiag_solve_plain`, x in b's layout; CUDA tensors launch the
+    Thomas kernel (float32 or float64) on the plan :func:`thomas_plan`
+    makes for (n, batch) and their layout: batch-last arrays that the
+    batch-last staged kernel takes (every one 16-byte aligned) launch it
+    and give x batch-last, others are copied to row-major first and give x
+    row-major.
+    ``tridiag_solve_cuda.launches`` counts kernel launches, one a call,
+    ``tridiag_solve_cuda.launches_by_dtype`` the same launches by dtype
+    name (``"float32"``, ``"float64"``),
     ``tridiag_solve_cuda.launches_by_route`` by route (``"staged"``,
-    ``"partitioned"``, ``"scratch"``). Span ``iv.tridiag.b1[<route> n=<n>
-    batch=<batch> <dtype>]``, route ``plain`` on the CPU.
+    ``"partitioned"``, ``"scratch"``) and
+    ``tridiag_solve_cuda.launches_by_layout`` by the layout the kernel
+    read (``"system_major"``, ``"batch_last"``). Span
+    ``iv.tridiag.b1[<route> n=<n> batch=<batch> <dtype>]``, route
+    ``plain`` on the CPU.
     """
     _check(dl, d, du, b)
+    lay = _layout(dl, d, du, b)
     n, batch = d.shape
     dtype = str(d.dtype)[6:]
     if d.device.type == "cpu":
@@ -212,17 +267,27 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
             return tridiag_solve_plain(dl, d, du, b)
     if d.device.type != "cuda":
         raise ValueError(f"no kernel for device {d.device}")
-    x = torch.empty_like(b)
     if batch == 0:
-        return x
-    plan = thomas_plan(n, d.dtype, batch)
+        return torch.empty_like(b)
+    plan = thomas_plan(n, d.dtype, batch, lay)
+    if plan.layout == "batch_last" and any(a.data_ptr() % 16 for a in (dl, d, du, b)):
+        plan = thomas_plan(n, d.dtype, batch)
+    if plan.layout != lay:
+        dl, d, du, b = (a.contiguous() for a in (dl, d, du, b))
+    if plan.layout == "batch_last":
+        x = torch.empty((batch, n), dtype=b.dtype, device=b.device).mT
+    else:
+        x = torch.empty_like(b)
     lib = load_library()
     suffix = "f32" if d.dtype == torch.float32 else "f64"
     ptrs = [a.data_ptr() for a in (dl, d, du, b, x)]
     with span(f"iv.tridiag.b1[{plan.route} n={n} batch={batch} {dtype}]"), \
             torch.cuda.device(d.device):
         stream = torch.cuda.current_stream(d.device).cuda_stream
-        if plan.route == "staged":
+        if plan.layout == "batch_last":
+            err = getattr(lib, f"ivt_thomas_staged_batch_last_{suffix}")(
+                *ptrs, n, batch, plan.threads, stream)
+        elif plan.route == "staged":
             err = getattr(lib, f"ivt_thomas_staged_{suffix}")(
                 *ptrs, n, batch, plan.threads, stream)
         elif plan.route == "partitioned":
@@ -232,13 +297,15 @@ def tridiag_solve_cuda(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
             cp = torch.empty_like(d)  # c' scratch; r' is written into x
             err = getattr(lib, f"ivt_thomas_scratch_{suffix}")(
                 *ptrs, cp.data_ptr(), n, batch, stream)
-    check_launch(err, f"thomas ({plan.route})")
+    check_launch(err, f"thomas ({plan.route}, {plan.layout})")
     tridiag_solve_cuda.launches += 1
     tridiag_solve_cuda.launches_by_dtype[dtype] += 1
     tridiag_solve_cuda.launches_by_route[plan.route] += 1
+    tridiag_solve_cuda.launches_by_layout[plan.layout] += 1
     return x
 
 
 tridiag_solve_cuda.launches = 0
 tridiag_solve_cuda.launches_by_dtype = {"float32": 0, "float64": 0}
 tridiag_solve_cuda.launches_by_route = dict.fromkeys(ROUTES, 0)
+tridiag_solve_cuda.launches_by_layout = dict.fromkeys(LAYOUTS, 0)

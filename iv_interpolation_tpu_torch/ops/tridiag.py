@@ -30,15 +30,20 @@ def tridiag_solve(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
       b:  right-hand side, shape ``(n,) + batch``.
 
     Returns x with the shape of ``b``; ``n == 1`` gives ``b / d``.
+
+    Arrays whose (n, flat batch) views are all batch-last (the system axis
+    moved to the front of contiguous ``(..., n)`` arrays) go to B1 as
+    they lie; otherwise each is made row-major (n, flat batch) first.
     """
     if not (dl.shape == d.shape == du.shape == b.shape):
         raise ValueError("dl, d, du and b must share one (n, ...) shape: "
                          f"{[tuple(a.shape) for a in (dl, d, du, b)]}")
     n = d.shape[0]
     flat = math.prod(d.shape[1:])
-    as2d = lambda a: a.reshape(n, flat).contiguous()
-    x = tridiag_solve_cuda(as2d(dl), as2d(d), as2d(du), as2d(b))
-    return x.reshape(b.shape)
+    arrays = [a.reshape(n, flat) for a in (dl, d, du, b)]
+    if not all(a.stride() == (1, n) for a in arrays):
+        arrays = [a.contiguous() for a in arrays]
+    return tridiag_solve_cuda(*arrays).reshape(b.shape)
 
 
 def tridiag_solve_pcr(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
@@ -82,7 +87,9 @@ def tridiag_solve_pcr(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
 def tridiag_solve_batch_last(dl: torch.Tensor, d: torch.Tensor, du: torch.Tensor,
                              b: torch.Tensor) -> torch.Tensor:
     """:func:`tridiag_solve` for ``(batch..., n)`` inputs: the system axis
-    moves to the front and back (B1 on a CUDA tensor)."""
+    moves to the front and back as views. Contiguous inputs reach B1
+    batch-last, uncopied, and x comes back contiguous where B1 reads them
+    so (its staged route, and CPU tensors)."""
     to_sys = lambda a: torch.movedim(a, -1, 0)
     return torch.movedim(tridiag_solve(*map(to_sys, (dl, d, du, b))), 0, -1)
 

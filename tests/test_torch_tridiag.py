@@ -18,14 +18,22 @@ import torch
 from iv_interpolation_tpu.ops.pallas.tridiag_pallas import tridiag_solve_pallas
 from iv_interpolation_tpu.ops.tridiag import tridiag_matvec as jax_matvec
 from iv_interpolation_tpu.ops.tridiag import tridiag_solve as jax_solve
+from iv_interpolation_tpu_torch.ops import tridiag as ops_tridiag
+from iv_interpolation_tpu_torch.ops.cubic_spline import fit_cubic_spline
 from iv_interpolation_tpu_torch.ops.cuda.tridiag import (
     LANES,
+    LAYOUTS,
+    batch_last_rows,
     partitioned_smem,
     thomas_plan,
     tridiag_solve_cuda,
     tridiag_solve_plain,
 )
-from iv_interpolation_tpu_torch.ops.tridiag import tridiag_matvec, tridiag_solve
+from iv_interpolation_tpu_torch.ops.tridiag import (
+    tridiag_matvec,
+    tridiag_solve,
+    tridiag_solve_batch_last,
+)
 
 
 def _systems(rng, shape, dtype):
@@ -89,8 +97,10 @@ def test_wrapper_rejects_what_the_kernel_cannot_take(rng):
         tridiag_solve_cuda(*(a.to(torch.int32) for a in (dl, d, du, b)))
     with pytest.raises(ValueError):
         tridiag_solve_cuda(dl[:, :3], d, du, b)              # shape mismatch
-    with pytest.raises(ValueError):
-        tridiag_solve_cuda(dl.T, d.T, du.T, b.T)             # not contiguous
+    with pytest.raises(ValueError):                          # neither layout
+        tridiag_solve_cuda(*(torch.cat([a, a])[::2] for a in (dl, d, du, b)))
+    with pytest.raises(ValueError):                          # mixed layouts
+        tridiag_solve_cuda(dl.T.contiguous().T, d, du, b)
     with pytest.raises(ValueError):
         tridiag_solve_cuda(*(a.reshape(-1) for a in (dl, d, du, b)))  # not 2-D
     with pytest.raises(ValueError):
@@ -199,3 +209,108 @@ def test_launch_plan_systems_a_block_by_batch(n, dtype, batch, systems):
     an SM), else the largest whose blocks pair on an SM, else 4."""
     plan = thomas_plan(n, dtype, batch)
     assert (plan.route, plan.systems) == ("partitioned", systems)
+
+
+# -- batch-last systems ---------------------------------------------------------
+# B1 reads (n, batch) arrays that are the transposes of row-major (batch, n)
+# ones as they lie. On CPU tensors the plain loop walks them in place: the
+# same operations on the same values, so x is bit for bit the row-major
+# solve's. Sizes: the staged route's n=3, 48 and 166 and the partitioned
+# route's n=719, at batches that are no multiple of 32.
+
+def _batch_last(rng, n, batch, dtype):
+    """(dl, d, du, b) as (n, batch) transposes of row-major (batch, n)."""
+    return [torch.from_numpy(np.ascontiguousarray(a.T)).mT
+            for a in _systems(rng, (n, batch), dtype)]
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n,batch", [(3, 37), (48, 45), (166, 13), (719, 5)])
+def test_wrapper_takes_batch_last_views(rng, n, batch, dtype):
+    arrays = _batch_last(rng, n, batch, dtype)
+    assert all(a.stride() == (1, n) for a in arrays)
+    got = tridiag_solve_cuda(*arrays)
+    assert got.shape == (n, batch) and got.stride() == (1, n)
+    want = tridiag_solve_plain(*(a.contiguous() for a in arrays))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("n", [3, 48, 166, 719])
+def test_solves_equal_the_row_major_route(rng, n, dtype):
+    """tridiag_solve on (n, 5, 7) and tridiag_solve_batch_last on (5, 7, n)
+    contiguous arrays, against the plain loop on row-major copies (the
+    route every call took before batch-last arrays reached B1)."""
+    arrays = [torch.from_numpy(a) for a in _systems(rng, (5, 7, n), dtype)]
+    moved = [a.movedim(-1, 0) for a in arrays]
+    want = tridiag_solve_plain(*(a.reshape(n, 35).contiguous() for a in moved))
+    got = tridiag_solve_batch_last(*arrays)
+    assert got.is_contiguous() and got.shape == (5, 7, n)
+    assert torch.equal(got, want.reshape(n, 5, 7).movedim(0, -1))
+    assert torch.equal(tridiag_solve(*moved), want.reshape(n, 5, 7))
+    # row-major (n, ...) arrays keep their route
+    rows = [a.contiguous() for a in moved]
+    assert torch.equal(tridiag_solve(*rows), want.reshape(n, 5, 7))
+
+
+@pytest.mark.parametrize("bc_type", ["natural", "clamped", "not-a-knot"])
+@pytest.mark.parametrize("n", [4, 50])
+def test_fit_cubic_spline_equals_the_row_major_route(rng, monkeypatch, bc_type, n):
+    x = np.sort(rng.uniform(-2.0, 2.0, (6, 7, n)), axis=-1)
+    x += np.arange(n) * 1e-3
+    y = 0.04 + 0.1 * x * x + rng.normal(scale=1e-3, size=x.shape)
+    kw = dict(fp0=rng.normal(size=(6, 7)), fpn=rng.normal(size=(6, 7))) \
+        if bc_type == "clamped" else {}
+    for dtype in (torch.float32, torch.float64):
+        xt, yt = (torch.from_numpy(a).to(dtype) for a in (x, y))
+        got = fit_cubic_spline(xt, yt, bc_type=bc_type, **kw)
+        with monkeypatch.context() as m:
+            m.setattr(ops_tridiag, "tridiag_solve_cuda",
+                      lambda *a: tridiag_solve_plain(*(t.contiguous() for t in a)))
+            want = fit_cubic_spline(xt, yt, bc_type=bc_type, **kw)
+        assert got.is_contiguous() and torch.equal(got, want), (bc_type, dtype)
+
+
+# n=48: the surface step (float32 S=128, float64 S=64, as row-major); n=166
+# in float64 and n=14, 30 in float64: the cubic batch's and the surface
+# task's parity shapes; n=56 in float32: rows padded to 60 pair two blocks
+# on an SM at S=64, where row-major 56 do at S=128; n=400 in float32: rows padded to 404 no longer fit
+# 32 systems in 200 KiB; n=3, 166, 257 in float32: no multiple of 16 bytes
+@pytest.mark.parametrize("n,dtype,plan", [
+    (48, torch.float32, ("staged", 128, 4 * 52 * 4 * 128, 128, "batch_last")),
+    (48, torch.float64, ("staged", 64, 4 * 50 * 8 * 64, 64, "batch_last")),
+    (166, torch.float64, ("staged", 32, 4 * 166 * 8 * 32, 32, "batch_last")),
+    (14, torch.float64, ("staged", 128, 4 * 14 * 8 * 128, 128, "batch_last")),
+    (30, torch.float64, ("staged", 64, 4 * 30 * 8 * 64, 64, "batch_last")),
+    (56, torch.float32, ("staged", 64, 4 * 60 * 4 * 64, 64, "batch_last")),
+    (400, torch.float32, None), (3, torch.float32, None),
+    (166, torch.float32, None), (257, torch.float32, None),
+])
+def test_launch_plan_batch_last(n, dtype, plan):
+    """The batch-last kernel's tiles at batch_last_rows (n padded to an odd
+    number of 16-byte pieces) set S and the shared bytes; shapes it does
+    not take get the row-major plan, which a batch-last call reaches by
+    copying."""
+    got = thomas_plan(n, dtype, 1000, "batch_last")
+    if plan is None:
+        assert got == thomas_plan(n, dtype, 1000) and got.layout == "system_major"
+    else:
+        assert tuple(got) == plan
+        assert got.smem == 4 * batch_last_rows(n, dtype) * dtype.itemsize * got.systems
+    with pytest.raises(ValueError):
+        thomas_plan(n, dtype, 1000, "column_major")
+
+
+def test_batch_last_rows_is_an_odd_number_of_pieces():
+    assert batch_last_rows(48, torch.float32) == 52
+    assert batch_last_rows(48, torch.float64) == 50
+    assert batch_last_rows(52, torch.float32) == 52
+    assert batch_last_rows(2, torch.float64) == 2
+    assert [batch_last_rows(n, torch.float32) for n in (1, 2, 3, 6, 47)] == [None] * 5
+
+
+def test_launches_by_layout_starts_at_zero(rng):
+    assert LAYOUTS == ("system_major", "batch_last")
+    assert tridiag_solve_cuda.launches_by_layout == {"system_major": 0, "batch_last": 0}
+    tridiag_solve_cuda(*_batch_last(rng, 6, 4, np.float32))   # CPU: no launch
+    assert tridiag_solve_cuda.launches_by_layout == {"system_major": 0, "batch_last": 0}
