@@ -82,7 +82,8 @@ Phases:
      generic loop at the same shape, then timed at 32,768 surfaces beside
      its bound and the plain version), (b) ``fit_essvi_batched`` with the
      block solver, and
-     the dense solver on 256 surfaces, (c) ``fit_sabr_batched`` on 30,720
+     the dense solver on 256 surfaces (each call's counters checked and
+     printed: one call of that solver), (c) ``fit_sabr_batched`` on 30,720
      slices, (d) ``fit_eval_surface`` for the three methods, (e)
      ``greek_surfaces`` on (d)'s grids; each held to the same call on CPU
      tensors at 64 surfaces and to the generating smile, and timed (ms a
@@ -2926,12 +2927,21 @@ def calibrated_fits(P, data, reset_counts, read_lm) -> dict:
                f"converged {float(res.converged.float().mean()):.1%}; a call: {lm_calls}")
         out[name]["lm_calls"] = lm_calls
 
-    # (b) eSSVI: the block solver on every surface, the dense one on a part
+    # (b) eSSVI: the block solver on every surface, the dense one on a part;
+    # the first call of each with the counts set to 0 just before it
     for name, solver, nb, nc in (("essvi block", "block", B, C),
                                  ("essvi dense", "dense", P["dense_B"], P["dense_cpu"])):
         fit = lambda it, solver=solver, nb=nb: essvi.fit_essvi_batched(
             k_dev[:nb], dev["essvi"][:nb], max_iters=it, solver=solver)
+        reset_counts()
         res = fit(iters)
+        counted = essvi.fit_essvi_batched
+        advance = {"calls": counted.calls, "iterations": counted.iterations,
+                   "surfaces": counted.surfaces, "by_solver": dict(counted.by_solver)}
+        check(advance == {"calls": 1, "iterations": iters, "surfaces": nb,
+                          "by_solver": {"block": int(solver == "block"),
+                                        "dense": int(solver == "dense")}},
+              f"(b) {name}: the counters advance by one {solver} call: {advance}")
         w_fit = essvi.essvi_w(res.params, k_dev[:nb])
         check(tuple(res.params.shape) == (nb, E, 3), f"(b) {name}: params shape")
         theta = res.params[..., 0]
@@ -2943,7 +2953,9 @@ def calibrated_fits(P, data, reset_counts, read_lm) -> dict:
                       data["w"]["essvi"][:nc], f"(b) {name}")
         report(name, "surfaces", nb, timed_fit(fit, iters), rmse, err,
                launches_a_fit(fit, iters),
-               f"; {nb} surfaces; accepted steps mean {float(res.n_accepted.float().mean()):.1f}")
+               f"; {nb} surfaces; accepted steps mean {float(res.n_accepted.float().mean()):.1f}"
+               f"; a call's counters: {advance}")
+        out[name]["counters"] = advance
 
     # (c) SABR on the B x E slices
     K_dev, iv_dev, F_dev = torch.exp(k_dev), data["iv"]["sabr"].to(DEV), torch.ones_like(T_dev)
@@ -4930,7 +4942,7 @@ def main(argv=()) -> int:
     from iv_interpolation_tpu_torch.ops.cuda import stream_agg as agg
     from iv_interpolation_tpu_torch.ops.cuda import svi_lm
     from iv_interpolation_tpu_torch.ops.cuda import tridiag
-    from iv_interpolation_tpu_torch.ops import lm, segment_ohlcv
+    from iv_interpolation_tpu_torch.ops import essvi, lm, segment_ohlcv
     from iv_interpolation_tpu_torch.ops import tridiag as ops_tridiag
     from iv_interpolation_tpu_torch.pipeline import runner, tasks
     from iv_interpolation_tpu_torch.pipeline import storage as st
@@ -4986,6 +4998,9 @@ def main(argv=()) -> int:
         svi_lm.svi_lm_cuda.launches = 0
         svi_lm.svi_lm_cuda.launches_by_dtype.update(float32=0, float64=0)
         lm.levenberg_marquardt_batched.calls = 0
+        fit_essvi = essvi.fit_essvi_batched
+        fit_essvi.calls = fit_essvi.iterations = fit_essvi.surfaces = 0
+        fit_essvi.by_solver.update(block=0, dense=0)
 
     def read_routes():
         if route_reads:

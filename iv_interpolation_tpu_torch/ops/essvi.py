@@ -27,6 +27,14 @@ w_{i+1} - w_i over a dense common k-grid is part of the LM residual
 Each surface is one Levenberg-Marquardt problem over 3E transformed
 parameters. Every function here broadcasts over leading (surface)
 dimensions: z is (..., 3E), params (..., E, 3), k and w (..., E, n).
+
+The block solver opens ``iv.essvi.init`` once a fit (the start and its
+cost) and three spans an iteration (``monitoring.metrics.span``):
+``iv.essvi.linearize`` (the slice Jacobians at the quotes and on the
+penalty grid, r, g and the blocks D and U), ``iv.essvi.solve`` (the
+damping, the block Thomas loop and the pullback to z) and
+``iv.essvi.step`` (the trial cost, acceptance and the convergence
+tests). The dense solver keeps ``ops.lm``'s ``iv.lm.*`` spans.
 """
 
 from __future__ import annotations
@@ -37,12 +45,13 @@ from typing import NamedTuple
 import torch
 from torch.func import jacfwd, vmap
 
+from iv_interpolation_tpu_torch.monitoring.metrics import span
 from iv_interpolation_tpu_torch.ops.lm import (
     levenberg_marquardt_batched,
     lm_accept,
     robustify,
 )
-from iv_interpolation_tpu_torch.ops.svi import _solve3x3, adjugate3x3, linspace_last
+from iv_interpolation_tpu_torch.ops.svi import _solve3x3, linspace_last
 from iv_interpolation_tpu_torch.surface.arbitrage import butterfly_g
 
 _RHO_MAX = 0.999
@@ -230,12 +239,21 @@ def _residual(z, k, w, weights, k_pen, calendar_weight, E):
 
 
 def _inv3x3(A: torch.Tensor) -> torch.Tensor:
-    """Closed-form 3x3 inverse from the shared adjugate/cofactor block
-    (``ops.svi.adjugate3x3``), computed once per block so the forward
+    """Closed-form 3x3 inverse, computed once per block so the forward
     elimination's two solves against the same Schur complement (and the
-    backward pass's re-solve) share one determinant and cofactor set."""
-    adj, det = adjugate3x3(A)
-    return adj / det[..., None, None]
+    backward pass's re-solve) share one determinant and cofactor set.
+
+    The cofactors of row i are the cross product of the other two rows
+    (the products and differences of ``ops.svi.adjugate3x3``'s elementwise
+    formulas), so an inverse is seven launches on the card where the
+    elementwise form took about forty: the loop inverts one block a slice
+    step on every surface of the batch, and at the book's 32,768 surfaces
+    those launches, each a few microseconds of device time, set the pace of
+    the whole fit."""
+    r1, r2, r3 = A[..., 0, :], A[..., 1, :], A[..., 2, :]
+    c1 = torch.linalg.cross(r2, r3)
+    adj = torch.stack([c1, torch.linalg.cross(r3, r1), torch.linalg.cross(r1, r2)], dim=-1)
+    return adj / (r1 * c1).sum(dim=-1)[..., None, None]
 
 
 def _matvec(A: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -317,51 +335,55 @@ def _fit_essvi_block(k, w, weights, k_pen, max_iters, calendar_weight,
         r = _residual(z, k, w, weights, k_pen, calendar_weight, E)
         return 0.5 * (r * r).sum(dim=-1)
 
-    z = essvi_init(k, w, weights)
-    state = (z, torch.full((B,), 1e-3, dtype=dtype, device=device), cost_of(z),
-             torch.zeros((B,), dtype=torch.int32, device=device),
-             torch.zeros((B,), dtype=torch.bool, device=device))
+    with span("iv.essvi.init"):
+        z = essvi_init(k, w, weights)
+        state = (z, torch.full((B,), 1e-3, dtype=dtype, device=device), cost_of(z),
+                 torch.zeros((B,), dtype=torch.int32, device=device),
+                 torch.zeros((B,), dtype=torch.bool, device=device))
     for _ in range(max_iters):
         z, lam, cost = state[:3]
-        params = _transform(z, E)                                  # (B, E, 3)
-        w_d, J_w = _slice_jacobians(params, k)
-        r_d = (w_d - w) * weights                                  # (B, E, n)
-        J_d = J_w * weights[..., None]                             # (B, E, n, 3)
-        g = torch.einsum("benp,ben->bep", J_d, r_d)
-        D = torch.einsum("benp,benq->bepq", J_d, J_d)
-        if cw > 0.0:
-            wp, Dp = _slice_jacobians(params, k_pen_e)             # (B, E, m), (B, E, m, 3)
-            gap = wp[:, 1:] - wp[:, :-1]
-            r_c = cw * gap.clamp_max(0.0)                          # (B, E-1, m)
-            mask = (gap < 0.0).to(dtype)[..., None]
-            J_lo = -cw * mask * Dp[:, :-1]                         # d r_c / d slice e
-            J_hi = cw * mask * Dp[:, 1:]                           # d r_c / d slice e+1
-            g = (g + _pad_slices(torch.einsum("bemp,bem->bep", J_lo, r_c), 0, 1)
-                 + _pad_slices(torch.einsum("bemp,bem->bep", J_hi, r_c), 1, 0))
-            D = (D + _pad_slices(torch.einsum("bemp,bemq->bepq", J_lo, J_lo), 0, 1)
-                 + _pad_slices(torch.einsum("bemp,bemq->bepq", J_hi, J_hi), 1, 0))
-            U = torch.einsum("bemp,bemq->bepq", J_lo, J_hi)
-        else:
-            U = torch.zeros((B, E - 1, 3, 3), dtype=dtype, device=device)
+        with span("iv.essvi.linearize"):
+            params = _transform(z, E)                              # (B, E, 3)
+            w_d, J_w = _slice_jacobians(params, k)
+            r_d = (w_d - w) * weights                              # (B, E, n)
+            J_d = J_w * weights[..., None]                         # (B, E, n, 3)
+            g = torch.einsum("benp,ben->bep", J_d, r_d)
+            D = torch.einsum("benp,benq->bepq", J_d, J_d)
+            if cw > 0.0:
+                wp, Dp = _slice_jacobians(params, k_pen_e)         # (B, E, m), (B, E, m, 3)
+                gap = wp[:, 1:] - wp[:, :-1]
+                r_c = cw * gap.clamp_max(0.0)                      # (B, E-1, m)
+                mask = (gap < 0.0).to(dtype)[..., None]
+                J_lo = -cw * mask * Dp[:, :-1]                     # d r_c / d slice e
+                J_hi = cw * mask * Dp[:, 1:]                       # d r_c / d slice e+1
+                g = (g + _pad_slices(torch.einsum("bemp,bem->bep", J_lo, r_c), 0, 1)
+                     + _pad_slices(torch.einsum("bemp,bem->bep", J_hi, r_c), 1, 0))
+                D = (D + _pad_slices(torch.einsum("bemp,bemq->bepq", J_lo, J_lo), 0, 1)
+                     + _pad_slices(torch.einsum("bemp,bemq->bepq", J_hi, J_hi), 1, 0))
+                U = torch.einsum("bemp,bemq->bepq", J_lo, J_hi)
+            else:
+                U = torch.zeros((B, E - 1, 3, 3), dtype=dtype, device=device)
 
-        diag = torch.diagonal(D, dim1=-2, dim2=-1)                 # (B, E, 3)
-        # absolute floor keyed to the SURFACE's diagonal scale: a fully
-        # masked slice has D = 0, and a lam-proportional damp alone
-        # (lam * 1e-12) underflows the float32 3x3 determinant -> NaN step
-        # -> every iteration rejected while lam grows
-        floor = 1e-8 * diag.flatten(-2).amax(dim=-1).clamp_min(1.0)
-        damp = lam[:, None, None] * diag.clamp_min(1e-12) + floor[:, None, None]
-        d_slice = _block_thomas(D + damp[..., None] * eye, U, -g)  # (B, E, 3)
-        z_new = z + _pullback_step(z, d_slice, E)
-        cost_new = cost_of(z_new)
-        accept = (cost_new < cost) & torch.isfinite(z_new).all(dim=-1)
-        z_next, lam, cost_next, n_acc = lm_accept(state, z_new, cost_new, accept)
-        # convergence bookkeeping mirrors ops/lm.py, small_step gated on
-        # acceptance; there is no gradient test in slice space
-        small_step = accept & (d_slice.abs().flatten(-2).amax(dim=-1)
-                               < tol * (1.0 + z_next.abs().amax(dim=-1)))
-        small_impr = accept & (cost - cost_new < tol * cost.clamp_min(1.0))
-        state = (z_next, lam, cost_next, n_acc, state[4] | small_step | small_impr)
+        with span("iv.essvi.solve"):
+            diag = torch.diagonal(D, dim1=-2, dim2=-1)             # (B, E, 3)
+            # absolute floor keyed to the SURFACE's diagonal scale: a fully
+            # masked slice has D = 0, and a lam-proportional damp alone
+            # (lam * 1e-12) underflows the float32 3x3 determinant -> NaN
+            # step -> every iteration rejected while lam grows
+            floor = 1e-8 * diag.flatten(-2).amax(dim=-1).clamp_min(1.0)
+            damp = lam[:, None, None] * diag.clamp_min(1e-12) + floor[:, None, None]
+            d_slice = _block_thomas(D + damp[..., None] * eye, U, -g)  # (B, E, 3)
+            z_new = z + _pullback_step(z, d_slice, E)
+        with span("iv.essvi.step"):
+            cost_new = cost_of(z_new)
+            accept = (cost_new < cost) & torch.isfinite(z_new).all(dim=-1)
+            z_next, lam, cost_next, n_acc = lm_accept(state, z_new, cost_new, accept)
+            # convergence bookkeeping mirrors ops/lm.py, small_step gated on
+            # acceptance; there is no gradient test in slice space
+            small_step = accept & (d_slice.abs().flatten(-2).amax(dim=-1)
+                                   < tol * (1.0 + z_next.abs().amax(dim=-1)))
+            small_impr = accept & (cost - cost_new < tol * cost.clamp_min(1.0))
+            state = (z_next, lam, cost_next, n_acc, state[4] | small_step | small_impr)
     z, _, cost, n_acc, converged = state
     return EssviFit(params=_transform(z, E), cost=cost, n_accepted=n_acc,
                     converged=converged)
@@ -404,6 +426,11 @@ def fit_essvi_batched(k: torch.Tensor, w: torch.Tensor,
     ``ops.lm`` path (also used for ``loss='huber'``, whose row reweighting
     breaks the block assembly), run :data:`_DENSE_CHUNK` surfaces at a
     time to bound its memory.
+
+    Host counters, read by nothing in the loop: ``fit_essvi_batched.calls``
+    (calls), ``.iterations`` (``max_iters`` of every call), ``.surfaces``
+    (surfaces summed over calls) and ``.by_solver`` (calls by the route
+    taken, ``block`` or ``dense``).
     """
     max_iters, n_penalty_grid = int(max_iters), int(n_penalty_grid)
     calendar_weight, huber_delta = float(calendar_weight), float(huber_delta)
@@ -416,8 +443,13 @@ def fit_essvi_batched(k: torch.Tensor, w: torch.Tensor,
     batch = w.shape[:-2]
     E, n = w.shape[-2:]
     kf, wf, wtf = (a.reshape(-1, E, n) for a in (k, w, weights))
+    route = "block" if solver == "block" and loss == "linear" else "dense"
+    fit_essvi_batched.calls += 1
+    fit_essvi_batched.iterations += max_iters
+    fit_essvi_batched.surfaces += kf.shape[0]
+    fit_essvi_batched.by_solver[route] += 1
     k_pen = _penalty_grid(kf, wtf, n_penalty_grid).to(k.dtype)
-    if solver == "block" and loss == "linear":
+    if route == "block":
         fit = _fit_essvi_block(kf, wf, wtf, k_pen, max_iters, calendar_weight)
     else:
         residual = partial(_residual, calendar_weight=calendar_weight, E=E)
@@ -431,6 +463,12 @@ def fit_essvi_batched(k: torch.Tensor, w: torch.Tensor,
             parts.append((_transform(res.params, E), *res[1:]))
         fit = EssviFit(*(torch.cat(cols) for cols in zip(*parts)))
     return EssviFit(*(a.reshape(batch + a.shape[1:]) for a in fit))
+
+
+fit_essvi_batched.calls = 0
+fit_essvi_batched.iterations = 0
+fit_essvi_batched.surfaces = 0
+fit_essvi_batched.by_solver = {"block": 0, "dense": 0}
 
 
 def fit_essvi(k, w, weights=None, max_iters: int = 64,

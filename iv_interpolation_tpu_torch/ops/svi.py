@@ -83,8 +83,9 @@ def svi_init(k: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def adjugate3x3(A: torch.Tensor):
     """Batched 3x3 ``(adjugate, det)`` by elementwise cofactor math: the
-    one home of the 9-cofactor block behind :func:`_solve3x3` (SVI
-    quasi-init) and ``ops.essvi._inv3x3``.
+    9-cofactor block behind :func:`_solve3x3` (SVI quasi-init and
+    ``ops.essvi.essvi_init``). ``ops.essvi._inv3x3`` takes the same
+    cofactors as cross products of the rows, in fewer launches.
 
     adj rows are laid out so that ``x = (adj @ b) / det`` solves
     ``A x = b``.

@@ -6,10 +6,12 @@ trace holds the stages of ``fit_eval_surface`` (``iv.surface.fit``,
 ``.grid``, ``.eval``, ``.diagnostics``, ``.fit_rmse``), its two spline
 evaluations (each with its bracket search) and its one B1 solve, the
 batched LM's four spans an iteration (``iv.lm.*``) and the SVI start's
-(``iv.svi.init``), and ``fit_eval_surface_grid``'s contraction and
-diagnostics; outputs are bit-equal with and without them. The LM's host
-counters advance by calls, iterations and problems. CPU tensors, CPU
-activity only.
+(``iv.svi.init``), the eSSVI block solver's start (``iv.essvi.init``) and
+three spans an iteration (``iv.essvi.{linearize,solve,step}``), and
+``fit_eval_surface_grid``'s contraction and diagnostics; outputs are
+bit-equal with and without them. The LM's host counters advance by calls,
+iterations and problems, eSSVI's by calls, iterations, surfaces and solver.
+CPU tensors, CPU activity only.
 """
 
 import torch_threads  # noqa: F401
@@ -151,7 +153,7 @@ def _equal(a, b) -> bool:
 
 @pytest.mark.parametrize("method,bc", [("cubic_spline", "not-a-knot"), ("cubic_spline", "natural"),
                                        ("smoothing_spline", "natural"), ("svi", "natural"),
-                                       ("sabr", "natural")])
+                                       ("sabr", "natural"), ("essvi", "natural")])
 def test_outputs_are_bit_equal_with_spans(tmp_path, method, bc):
     k, iv, T = _smiles(2, 3, 9, torch.float64)
     kwargs = dict(method=method, n_grid=11, spline_bc=bc, svi_iters=4, smoothing_lam=1e-4)
@@ -235,4 +237,62 @@ def test_lm_spans_without_a_profiler_are_the_shared_no_op(monkeypatch):
     fit_eval_surface(k, iv, T, method="svi", n_grid=11, svi_iters=3)
     assert made == []
     assert len(entered) == 1 + 4 * 3
+    assert all(context is metrics.span("iv.x") for context in entered)
+
+
+ESSVI_SPANS = ("iv.essvi.linearize", "iv.essvi.solve", "iv.essvi.step")
+
+
+def test_essvi_fit_holds_each_essvi_span_once_an_iteration(tmp_path):
+    """The block solver's three spans, one each an iteration in that order,
+    and its start's span once before them, all inside the fit stage."""
+    k, iv, T = _smiles(2, 3, 9, torch.float64)
+    with profile_trace(str(tmp_path)):
+        fit_eval_surface(k, iv, T, method="essvi", n_grid=11, svi_iters=3)
+    spans = _spans(tmp_path)
+    counts = Counter(name for name, _, _ in spans)
+    names = ("iv.essvi.init",) + ESSVI_SPANS
+    assert {name: counts[name] for name in names} == {
+        **dict.fromkeys(ESSVI_SPANS, 3), "iv.essvi.init": 1}
+    assert not any(name.startswith("iv.lm.") for name in counts)
+    (fit,) = [s for s in spans if s[0] == "iv.surface.fit"]
+    inner = sorted((s for s in spans if s[0] in names), key=lambda s: s[1])
+    assert all(_inside(s, fit) for s in inner)
+    assert [s[0] for s in inner] == ["iv.essvi.init"] + list(ESSVI_SPANS) * 3
+    assert all(a[2] <= b[1] for a, b in zip(inner, inner[1:]))
+
+
+@pytest.mark.parametrize("solver", ["block", "dense"])
+def test_essvi_counters_advance_by_calls_iterations_surfaces_and_solver(solver):
+    from iv_interpolation_tpu_torch.ops.essvi import fit_essvi_batched as fit
+    from iv_interpolation_tpu_torch.ops.lm import levenberg_marquardt_batched as lm
+    B, E = 2, 3
+    k, iv, T = _smiles(B, E, 9, torch.float64)
+    before = (fit.calls, fit.iterations, fit.surfaces, dict(fit.by_solver), lm.calls)
+    fit(k, iv * iv * T[..., None], max_iters=3, solver=solver)
+    after = (fit.calls, fit.iterations, fit.surfaces, dict(fit.by_solver), lm.calls)
+    assert tuple(b - a for a, b in zip(before[:3], after[:3])) == (1, 3, B)
+    assert {key: after[3][key] - before[3][key] for key in after[3]} == {
+        "block": int(solver == "block"), "dense": int(solver == "dense")}
+    # the dense route is the generic loop, with its own counters and spans
+    assert after[4] - before[4] == int(solver == "dense")
+
+
+def test_essvi_spans_without_a_profiler_are_the_shared_no_op(monkeypatch):
+    made = []
+    monkeypatch.setattr(torch.profiler, "record_function", lambda name: made.append(name))
+    entered = []
+    real = metrics.span
+
+    def watching(name):
+        context = real(name)
+        entered.append(context)
+        return context
+
+    from iv_interpolation_tpu_torch.ops import essvi
+    monkeypatch.setattr(essvi, "span", watching)
+    k, iv, T = _smiles(2, 3, 9, torch.float64)
+    fit_eval_surface(k, iv, T, method="essvi", n_grid=11, svi_iters=3)
+    assert made == []
+    assert len(entered) == 1 + 3 * 3
     assert all(context is metrics.span("iv.x") for context in entered)
