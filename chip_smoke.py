@@ -81,10 +81,14 @@ Phases:
      which is held bit for bit to its plain version on the card and to the
      generic loop at the same shape, then timed at 32,768 surfaces beside
      its bound and the plain version), (b) ``fit_essvi_batched`` with the
-     block solver, and
+     block solver (one launch of the eSSVI kernel, ``essvi_lm.cu``, and
+     no eager block loop; the kernel held to the eager loop in float64
+     and float32, then at 32,768 surfaces x 50 iterations held to the eager
+     loop's fit there and timed beside its bound and the eager loop), and
      the dense solver on 256 surfaces (each call's counters checked and
      printed: one call of that solver), (c) ``fit_sabr_batched`` on 30,720
-     slices, (d) ``fit_eval_surface`` for the three methods, (e)
+     slices, (d) ``fit_eval_surface`` for the three methods (svi and
+     essvi one launch of their kernel a call), (e)
      ``greek_surfaces`` on (d)'s grids; each held to the same call on CPU
      tensors at 64 surfaces and to the generating smile, and timed (ms a
      fit, ms an LM iteration, slices/s or surfaces/s, peak memory, device
@@ -2793,6 +2797,190 @@ SVI_SOLVE_OPS = 100
 # 32,768 (983,040 slices), 50 iterations
 SVI_LM = dict(surfaces=32768, iters=50)
 
+# the joint eSSVI calibration's least work a surface, in float32
+# instructions: about 60 a point for a full pass (w, three Jacobian entries,
+# g, the six entries of D and the cost as fused multiply-adds, a square root
+# and a reciprocal; at a hinge point also U's nine) at the start and after
+# each accepted step; about 20 a point for the cost-only pass of every
+# iteration; about 150 an expiry an iteration for the damping, the block
+# elimination (a closed-form 3 x 3 inverse, a few 3 x 3 products), the
+# pullback and the transform. A surface's points: E n quotes and (E - 1) m
+# hinge points. Iterations are counted up to the one a surface stops in: it
+# converged, or its trial was rejected with lambda at its ceiling (every
+# later iteration repeats that one).
+ESSVI_POINT_OPS = 60
+ESSVI_COST_OPS = 20
+ESSVI_EXPIRY_OPS = 150
+# the kernel's timed shape: the cell's 32,768 surfaces, 50 iterations
+ESSVI_LM = dict(surfaces=32768, iters=50, calendar_weight=10.0, grid=33)
+# lambda's range in the block solver's schedule (ops.lm.lm_accept)
+ESSVI_LAMBDA = (1e-12, 1e12)
+
+
+def essvi_held(got, eager, what: str) -> dict:
+    """The float32 kernel's fit against the float32 eager loop's on the same
+    quotes: two float32 LMs that round apart may take different decisions,
+    so the kernel's cost is held to at most 1e-3 over the eager loop's on
+    every surface (lower is better, and allowed)."""
+    ratio = got.cost.double() / eager.cost.double()
+    worst = float(ratio.max())
+    check(bool(torch.isfinite(got.params).all()) and worst <= 1 + 1e-3,
+          f"{what}: float32 cost at most 1e-3 over the eager loop's on every surface (worst "
+          f"{worst:.6f}, {float((ratio > 1 + 1e-3).double().mean()):.2%} above)")
+    return {"cost_over_eager_max": worst, "cost_below_eager": float((ratio < 1).double().mean())}
+
+
+def essvi_stops(K, k, w, kp, cw, its) -> tuple[torch.Tensor, torch.Tensor]:
+    """Each surface's iterations up to the one it stopped in, and its
+    accepted steps, in ``its`` iterations of the kernel: the kernel's fit
+    after 1, 2, ... iterations gives each iteration's accept (n_accepted
+    rose) and convergence, and lambda is replayed from them in the kernel's
+    own float32 arithmetic (/ 3 on an accept, x 3 on a reject, clamped), so
+    that a rejection with lambda at its ceiling is seen."""
+    B = k.shape[0]
+    lo, hi = ESSVI_LAMBDA
+    lam = torch.full((B,), K.LAMBDA0, dtype=torch.float32, device=k.device)
+    three = torch.full_like(lam, 3.0)  # a tensor: a / scalar multiplies by 1 / scalar
+    acc_before = torch.zeros(B, dtype=torch.int32, device=k.device)
+    running = torch.ones(B, dtype=torch.bool, device=k.device)
+    ran = torch.zeros(B, dtype=torch.float64, device=k.device)
+    for i in range(1, its + 1):
+        fit = K.essvi_lm_cuda(k, w, None, kp, i, cw)
+        acc = fit.n_accepted > acc_before
+        ran += running.double()
+        grown = (lam * three).clamp_min(lo).clamp_max(hi)
+        ceiling = ~acc & (grown == lam)
+        lam = torch.where(acc, (lam / three).clamp_min(lo).clamp_max(hi), grown)
+        running &= ~((acc & fit.converged) | ceiling)
+        acc_before = fit.n_accepted
+    return ran, fit.n_accepted.double()
+
+
+def essvi_lm_cases(P, data) -> dict:
+    """Phase 9 (b): the eSSVI kernel (``fit_essvi_batched``'s block route
+    on the card) on P's surfaces: one launch and no eager block loop; in
+    float32 held to the eager loop on the card (:func:`essvi_held`, both
+    within the generating smile's bound); in float64 on 64 surfaces against
+    the eager loop on the card: the same accept/reject decisions on every
+    surface (the surfaces where a trial's cost ties the current one within
+    1e-12, which ``tests/test_torch_essvi_lm.py`` lets differ, are counted
+    and printed), parameters within 1e-10 of their size, or within 10 times
+    the eager loop's own gap between the card and CPU tensors where that is
+    larger.
+    Then at ESSVI_LM (P's surfaces tiled): the kernel held to the eager
+    loop's fit at that shape (:func:`essvi_held`, the kernel's stops at
+    lambda's ceiling among its decisions), timed beside it and beside the
+    least work of the run's own iterations (ESSVI_POINT_OPS, ESSVI_COST_OPS,
+    ESSVI_EXPIRY_OPS; each surface's iterations up to the one it stopped
+    in, :func:`essvi_stops`, and its accepted steps; the share of its
+    iterations that linearise, ``(1 + accepted) / iterations``, is printed
+    beside them). The kernel's time is its launch's alone: the start
+    (``essvi_init``) is computed before the timed window."""
+    from iv_interpolation_tpu_torch import _build
+    from iv_interpolation_tpu_torch.ops import essvi
+    from iv_interpolation_tpu_torch.ops.cuda import essvi_lm as K
+
+    B, E, n, iters = P["B"], P["E"], P["N"], P["iters"]
+    cw, m = ESSVI_LM["calendar_weight"], ESSVI_LM["grid"]
+    k = data["k"].to(DEV).contiguous()
+    w = data["w"]["essvi"].to(DEV).contiguous()
+    clean = data["clean"]["essvi"].to(DEV)
+    ones = torch.ones_like(w)
+    eager_calls = []
+    real = essvi._fit_essvi_block
+    essvi._fit_essvi_block = lambda *a, **kw: eager_calls.append(1) or real(*a, **kw)
+    try:
+        before = K.essvi_lm_cuda.launches
+        got = essvi.fit_essvi_batched(k, w, max_iters=iters)
+        torch.cuda.synchronize()
+    finally:
+        essvi._fit_essvi_block = real
+    check((K.essvi_lm_cuda.launches - before, len(eager_calls)) == (1, 0),
+          "(b) essvi_lm: fit_essvi_batched's block route is one kernel launch, no eager loop")
+    kp = essvi._penalty_grid(k, ones, m).contiguous()
+    eager = real(k, w, ones, kp, iters, cw)
+    held = essvi_held(got, eager, f"(b) essvi_lm at {B:,} x {iters} iterations")
+    w_kernel, w_eager = essvi.essvi_w(got.params, k), essvi.essvi_w(eager.params, k)
+    rmse = {"kernel": recovery(w_kernel, clean, "(b) essvi_lm kernel"),
+            "eager": recovery(w_eager, clean, "(b) essvi_lm eager loop")}
+    C = 64
+    k64, w64 = k[:C].double(), w[:C].double()
+    kp64 = essvi._penalty_grid(k64, torch.ones_like(w64), m).contiguous()
+    a = K.essvi_lm_cuda(k64, w64, None, kp64, iters, cw)
+    seen, real_accept = [], essvi.lm_accept
+
+    def watching(state, z_new, cost_new, accept):
+        seen.append((cost_new - state[2]).abs() <= 1e-12 * state[2].abs())
+        return real_accept(state, z_new, cost_new, accept)
+
+    essvi.lm_accept = watching
+    try:
+        b = real(k64, w64, torch.ones_like(w64), kp64, iters, cw)
+    finally:
+        essvi.lm_accept = real_accept
+    tie = torch.stack(seen).any(dim=0)
+    c = real(k64.cpu(), w64.cpu(), torch.ones_like(w64.cpu()), kp64.cpu(), iters, cw)
+    same = (a.n_accepted == b.n_accepted) & (a.converged == b.converged)
+    rel = lambda x, y: ((x - y).abs() / y.abs().clamp_min(1e-4)).amax(dim=(-1, -2))
+    gap = rel(a.params, b.params)
+    gap64 = float(gap[same].max()) if bool(same.any()) else float("nan")
+    # the eager loop's own gap between the card and CPU tensors: where the
+    # normal equations are ill-conditioned both magnify float64 rounding
+    own = float(rel(b.params.cpu(), c.params).max())
+    check(bool(same.all()) and gap64 <= max(1e-10, 10 * own),
+          f"(b) essvi_lm float64: the eager loop's decisions on {int(same.sum())} of {C} "
+          f"surfaces ({int(tie.sum())} with a tied trial cost, {int((~same & ~tie).sum())} "
+          f"others differ), parameters within {gap64:.2e} of their size (the eager "
+          f"loop's card against CPU tensors: {own:.2e}; at most 1e-10 or 10 times that)")
+    log(f"  (b) essvi_lm at {B:,} x {E} x {n}, {iters} iterations: one launch; float32 cost "
+        f"at most {held['cost_over_eager_max']:.6f} times the eager loop's, rmse vs the "
+        f"generating smile {rmse}; float64 on {C}: parameters within {gap64:.2e} (eager "
+        f"card-CPU {own:.2e}), decisions equal on {int(same.sum())} ({int(tie.sum())} tied); "
+        f"accepted {float(got.n_accepted.float().mean()):.2f} / "
+        f"{float(eager.n_accepted.float().mean()):.2f}, converged "
+        f"{float(got.converged.float().mean()):.1%} / {float(eager.converged.float().mean()):.1%}")
+    reps = ESSVI_LM["surfaces"] // B
+    kb, wb = (x.repeat(reps, 1, 1) for x in (k, w))
+    kpb = kp.repeat(reps, 1)
+    S, its = kb.shape[0], ESSVI_LM["iters"]
+    z0 = essvi.essvi_init(kb, wb).contiguous()
+    lib = _build.load_library()
+    out = essvi.EssviFit(torch.empty((S, E, 3), device=DEV), torch.empty(S, device=DEV),
+                         torch.empty(S, dtype=torch.int32, device=DEV),
+                         torch.empty(S, dtype=torch.bool, device=DEV))
+
+    def launch(count):
+        err = lib.ivt_essvi_lm_f32(kb.data_ptr(), wb.data_ptr(), None, kpb.data_ptr(),
+                                   z0.data_ptr(), *(x.data_ptr() for x in out), S, E, n, m,
+                                   count, cw, K.LAMBDA0, K.TOL,
+                                   torch.cuda.current_stream().cuda_stream)
+        _build.check_launch(err, "eSSVI calibration")
+
+    ms = cuda_ms(lambda: launch(its), 5)
+    whole = K.essvi_lm_cuda(kb, wb, None, kpb, its, cw)
+    check(all(same_with_nan(x, y) for x, y in zip(out, whole)),
+          "(b) essvi_lm: the launch alone and the wrapper give the same fit")
+    eager_main = []
+    plain_ms = cuda_ms(lambda: eager_main.append(real(kb, wb, torch.ones_like(wb), kpb, its, cw)),
+                       1)
+    held_main = essvi_held(whole, eager_main[-1], f"(b) essvi_lm at {S:,} x {its} iterations")
+    del eager_main
+    ran, accepted = essvi_stops(K, kb, wb, kpb, cw, its)
+    check(torch.equal(accepted, whole.n_accepted.double()),
+          "(b) essvi_lm: the replay's accepted steps are the whole run's")
+    full = float((ran == its).double().mean())
+    points = E * n + (E - 1) * m
+    ops = float((points * (ESSVI_POINT_OPS * (1 + accepted) + ESSVI_COST_OPS * ran)
+                        + E * ESSVI_EXPIRY_OPS * ran).sum())
+    nbytes = S * (2 * E * n + m + 3 * E) * 4 + S * (3 * E * 4 + 4 + 4 + 1)
+    row = timing_row(f"essvi lm surfaces={S} E={E} n={n} m={m} iters={its} float32", ms,
+                     plain_ms, nbytes, ops, None, ops_s=F32_OPS_S / 2,
+                     iterations_mean=float(ran.mean()), accepted_mean=float(accepted.mean()),
+                     linearized_share=float(((1 + accepted) / ran).mean()),
+                     all_iterations_share=full, ops_least=ops, **held_main)
+    return {**row, "shapes": [row], "against_eager": {**held, "rmse": rmse,
+                                                      "float64_gap": gap64}}
+
 
 def svi_lm_cases(P, data) -> dict:
     """Phase 9 (a): the raw-SVI kernel (``fit_svi_batched``'s route on the
@@ -2910,7 +3098,7 @@ def calibrated_fits(P, data, reset_counts, read_lm) -> dict:
         reset_counts()
         res = fit(iters)
         lm_calls = read_lm()
-        want = {"svi_lm": 0, "generic_lm": 1} if kw else {"svi_lm": 1, "generic_lm": 0}
+        want = {"svi_lm": int(not kw), "generic_lm": int(bool(kw)), "essvi_lm": 0}
         check(lm_calls == want, f"(a) {name}: one call, "
               f"{'the generic loop' if kw else 'one raw-SVI kernel launch'}: {lm_calls}")
         w_fit = svi.svi_total_variance(res.params, k_dev)
@@ -2934,14 +3122,24 @@ def calibrated_fits(P, data, reset_counts, read_lm) -> dict:
         fit = lambda it, solver=solver, nb=nb: essvi.fit_essvi_batched(
             k_dev[:nb], dev["essvi"][:nb], max_iters=it, solver=solver)
         reset_counts()
-        res = fit(iters)
+        eager_calls = []
+        real_block = essvi._fit_essvi_block
+        essvi._fit_essvi_block = lambda *a, **kw: eager_calls.append(1) or real_block(*a, **kw)
+        try:
+            res = fit(iters)
+        finally:
+            essvi._fit_essvi_block = real_block
         counted = essvi.fit_essvi_batched
         advance = {"calls": counted.calls, "iterations": counted.iterations,
-                   "surfaces": counted.surfaces, "by_solver": dict(counted.by_solver)}
+                   "surfaces": counted.surfaces, "by_solver": dict(counted.by_solver),
+                   "essvi_lm": read_lm()["essvi_lm"], "eager_block": len(eager_calls)}
         check(advance == {"calls": 1, "iterations": iters, "surfaces": nb,
                           "by_solver": {"block": int(solver == "block"),
-                                        "dense": int(solver == "dense")}},
-              f"(b) {name}: the counters advance by one {solver} call: {advance}")
+                                        "dense": int(solver == "dense")},
+                          "essvi_lm": int(solver == "block"), "eager_block": 0},
+              f"(b) {name}: the counters advance by one {solver} call"
+              f"{', one eSSVI kernel launch and no eager block loop' if solver == 'block' else ''}"
+              f": {advance}")
         w_fit = essvi.essvi_w(res.params, k_dev[:nb])
         check(tuple(res.params.shape) == (nb, E, 3), f"(b) {name}: params shape")
         theta = res.params[..., 0]
@@ -2986,7 +3184,8 @@ def calibrated_surfaces(P, data, reset_counts, read_lm) -> dict:
     2 of the 2 x 64 flags different (a g or a calendar gap that sits on
     its tolerance may fall on either side of it on the two devices). The
     first svi call, with the counts set to 0 just before it, launches the
-    raw-SVI kernel once and calls no generic loop."""
+    raw-SVI kernel once and calls no generic loop; the first essvi call
+    launches the eSSVI kernel once and calls no generic loop."""
     from iv_interpolation_tpu_torch.surface import greeks, surface
 
     B, E, M, iters, C = P["B"], P["E"], P["M"], P["iters"], P["cpu"]
@@ -3000,8 +3199,11 @@ def calibrated_surfaces(P, data, reset_counts, read_lm) -> dict:
         res = step()
         lm_calls = read_lm()
         if method == "svi":
-            check(lm_calls == {"svi_lm": 1, "generic_lm": 0},
+            check(lm_calls == {"svi_lm": 1, "generic_lm": 0, "essvi_lm": 0},
                   f"(d) svi: one raw-SVI kernel launch a call, no generic loop: {lm_calls}")
+        if method == "essvi":
+            check(lm_calls == {"svi_lm": 0, "generic_lm": 0, "essvi_lm": 1},
+                  f"(d) essvi: one eSSVI kernel launch a call, no generic loop: {lm_calls}")
         check(tuple(res["w_grid"].shape) == (B, E, M) and res["w_grid"].dtype == torch.float32
               and bool(torch.isfinite(res["w_grid"]).all() and torch.isfinite(res["g"]).all()),
               f"(d) {method}: w_grid and g finite, (B, E, M)")
@@ -4940,7 +5142,7 @@ def main(argv=()) -> int:
     from iv_interpolation_tpu_torch import _build
     from iv_interpolation_tpu_torch.ops.cuda import spline_eval as se
     from iv_interpolation_tpu_torch.ops.cuda import stream_agg as agg
-    from iv_interpolation_tpu_torch.ops.cuda import svi_lm
+    from iv_interpolation_tpu_torch.ops.cuda import essvi_lm, svi_lm
     from iv_interpolation_tpu_torch.ops.cuda import tridiag
     from iv_interpolation_tpu_torch.ops import essvi, lm, segment_ohlcv
     from iv_interpolation_tpu_torch.ops import tridiag as ops_tridiag
@@ -4997,6 +5199,8 @@ def main(argv=()) -> int:
         se.spline_eval_cuda.launches_by_route.update(dict.fromkeys(se.ROUTES, 0))
         svi_lm.svi_lm_cuda.launches = 0
         svi_lm.svi_lm_cuda.launches_by_dtype.update(float32=0, float64=0)
+        essvi_lm.essvi_lm_cuda.launches = essvi_lm.essvi_lm_cuda.surfaces = 0
+        essvi_lm.essvi_lm_cuda.launches_by_dtype.update(float32=0, float64=0)
         lm.levenberg_marquardt_batched.calls = 0
         fit_essvi = essvi.fit_essvi_batched
         fit_essvi.calls = fit_essvi.iterations = fit_essvi.surfaces = 0
@@ -5023,7 +5227,8 @@ def main(argv=()) -> int:
     def read_lm():
         read_routes()
         return {"svi_lm": svi_lm.svi_lm_cuda.launches,
-                "generic_lm": lm.levenberg_marquardt_batched.calls}
+                "generic_lm": lm.levenberg_marquardt_batched.calls,
+                "essvi_lm": essvi_lm.essvi_lm_cuda.launches}
 
     def done(n):
         log(f"  phase {n} done at {time.perf_counter() - t_start:.1f} s")
@@ -5099,6 +5304,8 @@ def main(argv=()) -> int:
         log(f"  card: {smi.splitlines()[0]}")
         data = calib_data(CALIB)
         svi_rows = svi_lm_cases(CALIB, data)
+        torch.cuda.empty_cache()
+        essvi_rows = essvi_lm_cases(CALIB, data)
         torch.cuda.empty_cache()
         fits = calibrated_fits(CALIB, data, reset_counts, read_lm)
         calib = calibrated_surfaces(CALIB, data, reset_counts, read_lm)
@@ -5304,10 +5511,18 @@ def main(argv=()) -> int:
                      fits["svi quasi + huber"]["lm_calls"],
                  "fit_eval_surface svi (phase 9 (d))": calib["svi"]["lm_calls"]}
     paths["svi_lm"] = {path: calls["svi_lm"] for path, calls in svi_calls.items()}
+    essvi_src = dict(route="cuda", source="iv_interpolation_tpu_torch/csrc/essvi_lm.cu",
+                     replaces="none (the JAX package leaves its eSSVI block solver to XLA)")
+    # the eSSVI kernel's launches in one call of the block route and of the
+    # cell's entry point (checked in phase 9 (b) and (d))
+    paths["essvi_lm"] = {"fit_essvi_batched block (phase 9 (b))":
+                         fits["essvi block"]["counters"]["essvi_lm"],
+                         "fit_eval_surface essvi (phase 9 (d))": calib["essvi"]["lm_calls"]["essvi_lm"]}
     results = {"tridiag_thomas_f32": (thomas, b1["float32"]),
                "tridiag_thomas_f64": (thomas, b1["float64"]),
                "stream_agg": (agg_src, b2), "stream_agg_f64": (agg_src, b2_f64),
-               "spline_eval": (spline_src, spl), "svi_lm": (svi_src, svi_rows)}
+               "spline_eval": (spline_src, spl), "svi_lm": (svi_src, svi_rows),
+               "essvi_lm": (essvi_src, essvi_rows)}
     kernels = [{"name": name, "launches": sum(paths[name].values()), "paths": paths[name],
                 **rows, **source} for name, (source, rows) in results.items()]
     # B1's launches by route on the paths that read them by dtype, and on

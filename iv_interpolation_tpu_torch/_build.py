@@ -157,6 +157,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         # n, iterations, lambda0, tol, bounds (10 doubles on the host), stream
         "ivt_svi_lm_f32": [p] * 8 + [ll, i, i, d, d, ctypes.POINTER(d), p],
         "ivt_svi_lm_f64": [p] * 8 + [ll, i, i, d, d, ctypes.POINTER(d), p],
+        # k, w, weights, k_pen, z0, params, cost, n_accepted, converged,
+        # surfaces, E, n, m, iterations, calendar_weight, lambda0, tol, stream
+        "ivt_essvi_lm_f32": [p] * 9 + [ll, i, i, i, i, d, d, d, p],
+        "ivt_essvi_lm_f64": [p] * 9 + [ll, i, i, i, i, d, d, d, p],
     }
     for name, argtypes in signatures.items():
         fn = getattr(lib, name)

@@ -28,8 +28,14 @@ Each surface is one Levenberg-Marquardt problem over 3E transformed
 parameters. Every function here broadcasts over leading (surface)
 dimensions: z is (..., 3E), params (..., E, 3), k and w (..., E, n).
 
-The block solver opens ``iv.essvi.init`` once a fit (the start and its
-cost) and three spans an iteration (``monitoring.metrics.span``):
+The block solver has two routes, chosen by what the input shows. On CUDA
+tensors of one dtype, float32 or float64, with E <= 32, one launch of the
+eSSVI kernel (``ops.cuda.essvi_lm.essvi_lm_cuda``, ``csrc/essvi_lm.cu``)
+runs every iteration of every surface: ``iv.essvi.init`` (the start), then
+one ``iv.essvi.lm[cuda surfaces= E= n= m= iters= <dtype>]`` around the
+launch. Otherwise the eager loop ``_fit_essvi_block``, the kernel's plain
+version, opens ``iv.essvi.init`` once a fit (the start and its cost) and
+three spans an iteration (``monitoring.metrics.span``):
 ``iv.essvi.linearize`` (the slice Jacobians at the quotes and on the
 penalty grid, r, g and the blocks D and U), ``iv.essvi.solve`` (the
 damping, the block Thomas loop and the pullback to z) and
@@ -46,12 +52,13 @@ import torch
 from torch.func import jacfwd, vmap
 
 from iv_interpolation_tpu_torch.monitoring.metrics import span
+from iv_interpolation_tpu_torch.ops.cuda.essvi_lm import MAX_EXPIRIES, essvi_lm_cuda
 from iv_interpolation_tpu_torch.ops.lm import (
     levenberg_marquardt_batched,
     lm_accept,
     robustify,
 )
-from iv_interpolation_tpu_torch.ops.svi import _solve3x3, linspace_last
+from iv_interpolation_tpu_torch.ops.svi import linspace_last
 from iv_interpolation_tpu_torch.surface.arbitrage import butterfly_g
 
 _RHO_MAX = 0.999
@@ -170,19 +177,27 @@ def essvi_init(k: torch.Tensor, w: torch.Tensor,
     w''(0) = psi^2 (1 - rho^2) / (2 theta), so a least-squares quadratic
     w ~ a0 + a1 k + a2 k^2 per slice gives
     psi = sqrt(a1^2 + 4 a2 theta), rho = a1 / psi. The 3x3 normal
-    equations are solved closed-form (``ops.svi._solve3x3``).
-    ``k``/``w``: (..., E, n); ``weights`` (..., E, n) match the fit's
+    equations are solved closed-form (:func:`_inv3x3`'s cross products).
+    ``k``/``w``: (..., E, n); ``weights`` (..., E, n) or None for unit
+    weights match the fit's
     residual weights (squared here: the residual form multiplies r by the
     weight), so masked or padded quotes cannot steer the init: a slice of
     placeholder w would otherwise inflate its theta estimate, and the
     running max below would drag every later slice's init up with it.
     """
     X = torch.stack([torch.ones_like(k), k, k * k], dim=-1)      # (..., E, n, 3)
-    sq = torch.ones_like(w) if weights is None else weights * weights
-    A = torch.einsum("...en,...eni,...enj->...eij", sq, X, X)
+    # unit weights take no ones tensor and no weighted einsum: with
+    # _inv3x3 the kernel route's grid and start at 32,768 x 30 x 50 take
+    # 11.3 ms of an H100 where a ones tensor and _solve3x3 took 13.8
+    if weights is None:
+        A = torch.einsum("...eni,...enj->...eij", X, X)
+        rhs = torch.einsum("...eni,...en->...ei", X, w)
+    else:
+        sq = weights * weights
+        A = torch.einsum("...en,...eni,...enj->...eij", sq, X, X)
+        rhs = torch.einsum("...eni,...en->...ei", X, sq * w)
     A = A + 1e-8 * torch.eye(3, dtype=w.dtype, device=w.device)
-    rhs = torch.einsum("...eni,...en->...ei", X, sq * w)
-    sol = _solve3x3(A, rhs)                                       # (..., E, 3)
+    sol = _matvec(_inv3x3(A), rhs)                                # (..., E, 3)
     theta = sol[..., 0].clamp_min(1e-5)
     # fully-masked slices carry no information: park them at the floor
     # so the running max below takes the preceding live slice's level
@@ -389,18 +404,37 @@ def _fit_essvi_block(k, w, weights, k_pen, max_iters, calendar_weight,
                     converged=converged)
 
 
-def _penalty_grid(k: torch.Tensor, weights: torch.Tensor, n_penalty_grid: int) -> torch.Tensor:
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether ``t`` lies on a CUDA device: the block route's kernel runs there."""
+    return t.device.type == "cuda"
+
+
+def _takes_kernel(arrays, E: int) -> bool:
+    """The block route's rule for the eSSVI kernel: every array on the card
+    in one dtype, float32 or float64, and at most 32 expiries (a lane each)."""
+    first = arrays[0]
+    return (_on_card(first) and first.dtype in (torch.float32, torch.float64)
+            and 1 <= E <= MAX_EXPIRIES and first.shape[-1] >= 1
+            and all(a.dtype == first.dtype and a.device == first.device for a in arrays))
+
+
+def _penalty_grid(k: torch.Tensor, weights: torch.Tensor | None,
+                  n_penalty_grid: int) -> torch.Tensor:
     """Calendar-penalty grid (B, m) over the intersection of the QUOTED
-    strike ranges, masked by the weights and not the raw first/last
-    columns: zero-weight padded or sentinel strikes would collapse the
-    range and move the hinge off the quoted region."""
-    live = weights > 0
-    inf = float("inf")
-    k_lo = torch.where(live, k, inf).amin(dim=-1)                  # (B, E)
-    k_hi = torch.where(live, k, -inf).amax(dim=-1)
-    has = live.any(dim=-1)
-    k_lo = torch.where(has, k_lo, k[..., 0])
-    k_hi = torch.where(has, k_hi, k[..., -1])
+    strike ranges, masked by the weights (None: unit weights, every strike
+    quoted) and not the raw first/last columns: zero-weight padded or
+    sentinel strikes would collapse the range and move the hinge off the
+    quoted region."""
+    if weights is None:
+        k_lo, k_hi = k.amin(dim=-1), k.amax(dim=-1)                # (B, E)
+    else:
+        live = weights > 0
+        inf = float("inf")
+        k_lo = torch.where(live, k, inf).amin(dim=-1)
+        k_hi = torch.where(live, k, -inf).amax(dim=-1)
+        has = live.any(dim=-1)
+        k_lo = torch.where(has, k_lo, k[..., 0])
+        k_hi = torch.where(has, k_hi, k[..., -1])
     return linspace_last(k_lo.amax(dim=-1), k_hi.amin(dim=-1), n_penalty_grid)
 
 
@@ -422,7 +456,12 @@ def fit_essvi_batched(k: torch.Tensor, w: torch.Tensor,
     (``ops.lm.robustify``). ``solver='block'`` (default) exploits the
     block-tridiagonal structure of the normal equations in slice space:
     O(E) 3x3 solves instead of a dense (3E)^3 Cholesky (see the banner
-    comment above ``_block_thomas``); ``solver='dense'`` is the generic
+    comment above ``_block_thomas``). The block route runs as one launch
+    of the eSSVI kernel (``ops.cuda.essvi_lm.essvi_lm_cuda``, the same
+    algorithm with closed-form slice Jacobians, spans ``iv.essvi.init``
+    and ``iv.essvi.lm[cuda ...]``) where k, w and the weights are CUDA
+    tensors of one dtype, float32 or float64, and E <= 32; otherwise it
+    runs the eager loop ``_fit_essvi_block``. ``solver='dense'`` is the generic
     ``ops.lm`` path (also used for ``loss='huber'``, whose row reweighting
     breaks the block assembly), run :data:`_DENSE_CHUNK` surfaces at a
     time to bound its memory.
@@ -438,30 +477,36 @@ def fit_essvi_batched(k: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"unknown solver: {solver!r}")
     if loss not in ("linear", "huber"):
         raise ValueError(f"unknown loss: {loss!r}")
-    if weights is None:
-        weights = torch.ones_like(w)
+    arrays = (k, w) if weights is None else (k, w, weights)
     batch = w.shape[:-2]
     E, n = w.shape[-2:]
-    kf, wf, wtf = (a.reshape(-1, E, n) for a in (k, w, weights))
+    kf, wf = (a.reshape(-1, E, n) for a in (k, w))
+    wtf = None if weights is None else weights.reshape(-1, E, n)
     route = "block" if solver == "block" and loss == "linear" else "dense"
     fit_essvi_batched.calls += 1
     fit_essvi_batched.iterations += max_iters
     fit_essvi_batched.surfaces += kf.shape[0]
     fit_essvi_batched.by_solver[route] += 1
     k_pen = _penalty_grid(kf, wtf, n_penalty_grid).to(k.dtype)
-    if route == "block":
-        fit = _fit_essvi_block(kf, wf, wtf, k_pen, max_iters, calendar_weight)
+    if route == "block" and _takes_kernel(arrays, E):
+        fit = essvi_lm_cuda(kf.contiguous(), wf.contiguous(),
+                            None if wtf is None else wtf.contiguous(), k_pen.contiguous(),
+                            max_iters, calendar_weight)
     else:
-        residual = partial(_residual, calendar_weight=calendar_weight, E=E)
-        if loss == "huber":
-            residual = robustify(residual, huber_delta)
-        parts = []
-        for s in range(0, kf.shape[0], _DENSE_CHUNK):
-            part = tuple(a[s:s + _DENSE_CHUNK] for a in (kf, wf, wtf, k_pen))
-            res = levenberg_marquardt_batched(
-                residual, essvi_init(*part[:3]), *part, max_iters=max_iters)
-            parts.append((_transform(res.params, E), *res[1:]))
-        fit = EssviFit(*(torch.cat(cols) for cols in zip(*parts)))
+        wtf = torch.ones_like(wf) if wtf is None else wtf
+        if route == "block":
+            fit = _fit_essvi_block(kf, wf, wtf, k_pen, max_iters, calendar_weight)
+        else:
+            residual = partial(_residual, calendar_weight=calendar_weight, E=E)
+            if loss == "huber":
+                residual = robustify(residual, huber_delta)
+            parts = []
+            for s in range(0, kf.shape[0], _DENSE_CHUNK):
+                part = tuple(a[s:s + _DENSE_CHUNK] for a in (kf, wf, wtf, k_pen))
+                res = levenberg_marquardt_batched(
+                    residual, essvi_init(*part[:3]), *part, max_iters=max_iters)
+                parts.append((_transform(res.params, E), *res[1:]))
+            fit = EssviFit(*(torch.cat(cols) for cols in zip(*parts)))
     return EssviFit(*(a.reshape(batch + a.shape[1:]) for a in fit))
 
 

@@ -83,9 +83,10 @@ def svi_init(k: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 def adjugate3x3(A: torch.Tensor):
     """Batched 3x3 ``(adjugate, det)`` by elementwise cofactor math: the
-    9-cofactor block behind :func:`_solve3x3` (SVI quasi-init and
-    ``ops.essvi.essvi_init``). ``ops.essvi._inv3x3`` takes the same
-    cofactors as cross products of the rows, in fewer launches.
+    9-cofactor block behind :func:`_solve3x3` (SVI quasi-init).
+    ``ops.essvi._inv3x3`` takes the same cofactors as cross products of
+    the rows, in fewer launches (``ops.essvi.essvi_init`` and the eSSVI
+    block solver).
 
     adj rows are laid out so that ``x = (adj @ b) / det`` solves
     ``A x = b``.
